@@ -1,0 +1,96 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on
+the card, at small shapes with ragged edges (rows, columns and sequence
+lengths that are not tile multiples, s_q != s_k, a valid-key length).
+
+Needs an NVIDIA card and ``nvcc``: marked ``cuda`` and skipped without a
+card. On the card: ``python3 -m pytest tests/test_torch_cuda.py -q``.
+Bound: max|kernel - plain| <= 1e-2 * max|plain|, the plain version in fp32
+on the same bf16 inputs (bf16 operands and outputs, fp32 accumulation).
+"""
+
+import pytest
+import torch
+
+from vista_tpu_torch.ops.attention import attention_packed, attention_plain
+from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_plain,
+                                        ln_linear, ln_linear_plain)
+from vista_tpu_torch.ops.temporal_conv import gn_silu_conv3, gn_silu_conv3_plain
+
+pytestmark = pytest.mark.cuda
+TOL = 1e-2
+
+
+@pytest.fixture
+def rnd():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def draw(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+
+    return draw
+
+
+def _f32(*ts):
+    return [None if t is None else t.float() for t in ts]
+
+
+def _check(got, ref):
+    got = got if isinstance(got, torch.Tensor) else torch.stack(list(got))
+    ref = ref if isinstance(ref, torch.Tensor) else torch.stack(list(ref))
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err <= TOL, float(err)
+
+
+@pytest.mark.parametrize("b,s_q,s_k,heads,valid_k", [
+    (3, 100, 130, 2, None), (3, 100, 130, 2, 77), (40, 25, 25, 5, None),
+    (2, 1000, 1000, 1, 999), (70000, 25, 25, 1, None)])
+def test_attention(rnd, b, s_q, s_k, heads, valid_k):
+    q, k, v = rnd(b, s_q, heads * 64), rnd(b, s_k, heads * 64), rnd(b, s_k, heads * 64)
+    _check(attention_packed(q, k, v, heads, valid_k),
+           attention_plain(*_f32(q, k, v), heads, valid_k))
+
+
+@pytest.mark.parametrize("m,c,splits", [(300, 96, 3), (129, 64, 1)])
+def test_ln_linear_split(rnd, m, c, splits):
+    x, w = rnd(m, c), rnd(splits * c, c, std=c ** -0.5)
+    lw, lb = 1 + rnd(c, std=0.1, dtype=torch.float32), rnd(c, std=0.1, dtype=torch.float32)
+    _check(ln_linear(x, lw, lb, w, None, "split", splits),
+           ln_linear_plain(*_f32(x, lw, lb, w), None, "split", splits))
+
+
+def test_ln_linear_geglu(rnd):
+    m, c = 300, 64
+    x, w1 = rnd(m, c), rnd(8 * c, c, std=c ** -0.5)
+    lw, lb = 1 + rnd(c, std=0.1, dtype=torch.float32), rnd(c, std=0.1, dtype=torch.float32)
+    b1 = rnd(8 * c, std=0.1, dtype=torch.float32)
+    _check(ln_linear(x, lw, lb, w1, b1, "geglu"),
+           ln_linear_plain(*_f32(x, lw, lb, w1, b1), "geglu"))
+
+
+def test_linear_residual(rnd):
+    m, k, n = 300, 256, 200
+    a, w, res = rnd(m, k), rnd(n, k, std=k ** -0.5), rnd(m, n)
+    b = rnd(n, std=0.1, dtype=torch.float32)
+    _check(linear_residual(a, w, b, res), linear_residual_plain(*_f32(a, w, b, res)))
+
+
+@pytest.mark.parametrize("cout,epilogue", [(96, "emb"), (64, "res")])
+def test_gn_silu_conv3(rnd, cout, epilogue):
+    t, bt, s, cin = 5, 10, 45, 64
+    x = rnd(bt, s, cin)
+    sc, sh = rnd(bt, cin, std=0.5, dtype=torch.float32), rnd(bt, cin, std=0.5, dtype=torch.float32)
+    w, b = rnd(cout, cin, 3, 1, 1, std=(3 * cin) ** -0.5), rnd(cout, std=0.1, dtype=torch.float32)
+    kw = dict(emb=rnd(bt, cout, dtype=torch.float32)) if epilogue == "emb" else dict(
+        residual=rnd(bt, s, cout), res_scale=torch.full((1,), 0.3, device="cuda"))
+    ref_kw = {k: v.float() for k, v in kw.items()}
+    _check(gn_silu_conv3(x, sc, sh, w, b, t, **kw),
+           gn_silu_conv3_plain(*_f32(x, sc, sh, w, b), t, **ref_kw))
+
+
+def test_cuda_tensors_never_take_the_plain_path(rnd):
+    q = rnd(1, 10, 64).float()
+    with pytest.raises(TypeError):
+        attention_packed(q, q, q, 1)

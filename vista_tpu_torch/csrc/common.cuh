@@ -1,0 +1,159 @@
+// Shared pieces of the hand-written Hopper kernels: bf16 tensor-core MMA
+// (mma.sync m16n8k16, fp32 accumulate), fragment loads from shared memory,
+// and a 128x128x32 block-tile GEMM main loop whose A- and B-tile loaders are
+// supplied by each kernel (that is where the LayerNorm and GroupNorm+SiLU
+// prologues live).
+//
+// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A 16x16 row-major: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
+//   B 16x8 "col":      b0 (k 2t..2t+1, n g)  b1 (k 2t+8.., n g)
+//   C 16x8 fp32:       c0,c1 (g, 2t..2t+1)   c2,c3 (g+8, 2t..2t+1)
+// B operands are read from weights stored as (N, K) row-major, the layout of
+// torch.nn.Linear.weight, so a B fragment is one 32-bit load.
+#pragma once
+
+#include <math.h>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace vk {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two floats -> one register of two bf16, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// d += a * b on the tensor cores.
+__device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
+                                          const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Eight bf16 values travel as one 16-byte uint4.
+__device__ __forceinline__ void unpack8(const uint4& v, float f[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float2 p = __bfloat1622float2(h[e]);
+    f[2 * e] = p.x;
+    f[2 * e + 1] = p.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float f[8]) {
+  uint4 v;
+  v.x = pack_bf16(f[0], f[1]);
+  v.y = pack_bf16(f[2], f[3]);
+  v.z = pack_bf16(f[4], f[5]);
+  v.w = pack_bf16(f[6], f[7]);
+  return v;
+}
+
+// ---- block-tile GEMM: C[128 x 128] = A[128 x K] * B[128 x K]^T ----
+// 256 threads = 8 warps as 2 (rows) x 4 (columns); each warp owns 64 x 32
+// of the tile as 4 x 4 m16n8 accumulators. A slice of BK = 32 along K is
+// staged in shared memory; the next slice is fetched into registers while
+// the tensor cores work on the current one.
+constexpr int BM = 128, BN = 128, BK = 32;
+constexpr int SK = BK + 8;  // padded row stride (bf16) against bank conflicts
+constexpr int GEMM_THREADS = 256;
+
+struct GemmSmem {
+  bf16 a[BM * SK];
+  bf16 b[BN * SK];
+};
+
+__device__ __forceinline__ void mma_slice(const bf16* As, const bf16* Bs,
+                                          float acc[4][4][4], int wm, int wn,
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 16) {
+    uint32_t bfr[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bf16* p = Bs + (wn * 32 + j * 8 + g) * SK + ks + t * 2;
+      bfr[j][0] = ld32(p);
+      bfr[j][1] = ld32(p + 8);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bf16* p = As + (wm * 64 + i * 16 + g) * SK + ks + t * 2;
+      uint32_t afr[4] = {ld32(p), ld32(p + 8 * SK), ld32(p + 8),
+                         ld32(p + 8 * SK + 8)};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_16816(acc[i][j], afr, bfr[j]);
+    }
+  }
+}
+
+// load_a(row, k) / load_b(row, k) return the 8 bf16 values at tile row
+// ``row`` (0..127) and K offset ``k`` (a multiple of 8). K % BK == 0.
+template <class LoadA, class LoadB>
+__device__ __forceinline__ void gemm_mainloop(int K, const LoadA& load_a,
+                                              const LoadB& load_b,
+                                              GemmSmem& sm,
+                                              float acc[4][4][4]) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  uint4 ra[2], rb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int c = tid + r * GEMM_THREADS;
+    ra[r] = load_a(c >> 2, (c & 3) * 8);
+    rb[r] = load_b(c >> 2, (c & 3) * 8);
+  }
+  for (int k0 = 0; k0 < K; k0 += BK) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int c = tid + r * GEMM_THREADS;
+      const int off = (c >> 2) * SK + (c & 3) * 8;
+      *reinterpret_cast<uint4*>(&sm.a[off]) = ra[r];
+      *reinterpret_cast<uint4*>(&sm.b[off]) = rb[r];
+    }
+    __syncthreads();
+    if (k0 + BK < K) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int c = tid + r * GEMM_THREADS;
+        ra[r] = load_a(c >> 2, k0 + BK + (c & 3) * 8);
+        rb[r] = load_b(c >> 2, k0 + BK + (c & 3) * 8);
+      }
+    }
+    mma_slice(sm.a, sm.b, acc, wm, wn, lane);
+    __syncthreads();
+  }
+}
+
+}  // namespace vk

@@ -1,0 +1,177 @@
+"""Transformer blocks of the spatiotemporal UNet (counterpart of
+``vista_tpu/models/attention.py``).
+
+Token activations are ``(batch, tokens, c)`` rows, the layout of the ops.
+Parameter names are the upstream torch keys (``attn1.to_q``, ``ff.net.0.proj``,
+``time_stack.0.norm_in`` ...), so exported JAX weights and the released
+checkpoint load with ``strict=True``.
+
+- Self-attention: ``x + to_out(attn(to_qkv(LN(x))))`` as K2 (LN + q/k/v), K1
+  (attention) and K3 (out-projection + bias + residual).
+- Feed-forward: ``x + FF(LN(x))`` as K2 with the GEGLU epilogue, then K3.
+- Cross-attention: Vista's context is one token per video, and softmax over
+  one key is 1, so the output is ``to_out(to_v(ctx))`` for every query; it
+  is computed once per context row and broadcast, and ``norm2`` (whose
+  output nothing would read) is skipped. Contexts of several tokens are not
+  ported.
+- Temporal block: rows ``(b*s, t, c)``, one per spatial location, t = 25
+  frames unpadded.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from vista_tpu_torch.models.layers import (AlphaBlender, GroupNorm32, from_rows,
+                                           timestep_embedding, to_rows)
+from vista_tpu_torch.ops.attention import attention_packed
+from vista_tpu_torch.ops.fused_ff import fused_geglu_ff
+from vista_tpu_torch.ops.fused_qkv import fused_ln_qkv
+from vista_tpu_torch.ops.fused_temporal_attn import fused_temporal_self_attn
+from vista_tpu_torch.ops.linear import linear_residual
+
+LONG_SEQ = 2048  # launch-count label only: "spatial-long" at s >= this
+
+
+class CrossAttention(nn.Module):
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Dropout(0.0))
+
+    def self_attention(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+        """``x + to_out(attn(to_qkv(norm(x))))`` on ``(n, s, c)``."""
+        q, k, v = fused_ln_qkv(x, norm.weight, norm.bias, self.to_q.weight,
+                               self.to_k.weight, self.to_v.weight, norm.eps)
+        site = "spatial-long" if x.shape[1] >= LONG_SEQ else "spatial-short"
+        o = attention_packed(q, k, v, self.heads, site=site)
+        out = self.to_out[0]
+        return linear_residual(o, out.weight, out.bias.float(), x, site="attn-out")
+
+    def cross(self, context: torch.Tensor) -> torch.Tensor:
+        """The cross-attention term for a one-token context: softmax over one
+        key is 1, so every query gets ``to_out(to_v(ctx))``. Returns
+        ``(context rows, 1, c)``, to be broadcast by the caller."""
+        if context is None or context.shape[1] != 1:
+            raise NotImplementedError("only one-token contexts (Vista's) are ported")
+        return self.to_out(self.to_v(context))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward, upstream keys ``net.0.proj`` and ``net.2``."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.Sequential(GEGLU(dim, dim * mult), nn.Dropout(0.0),
+                                 nn.Linear(dim * mult, dim))
+
+    def residual(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+        """``x + FF(norm(x))``."""
+        p_in, p_out = self.net[0].proj, self.net[2]
+        return fused_geglu_ff(x, norm.weight, norm.bias, p_in.weight, p_in.bias,
+                              p_out.weight, p_out.bias, norm.eps)
+
+
+class TransformerBlock(nn.Module):
+    """Spatial block: pre-LN self-attn -> cross-attn(context) -> GEGLU FF."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int]):
+        super().__init__()
+        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.ff = FeedForward(dim)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim)
+        self.norm1, self.norm2, self.norm3 = (nn.LayerNorm(dim) for _ in range(3))
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
+        x = self.attn1.self_attention(x, self.norm1)
+        x = x + self.attn2.cross(context)
+        return self.ff.residual(x, self.norm3)
+
+
+class TemporalTransformerBlock(nn.Module):
+    """Attention over the frame axis (upstream VideoTransformerBlock with
+    ``ff_in`` and the spatial context): ``(b*t, s, c)`` is viewed as
+    ``(b*s, t, c)`` so that every location attends over its frames."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int]):
+        super().__init__()
+        self.heads = heads
+        self.norm_in = nn.LayerNorm(dim)
+        self.ff_in = FeedForward(dim)
+        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim)
+        self.norm1, self.norm2, self.norm3 = (nn.LayerNorm(dim) for _ in range(3))
+        self.ff = FeedForward(dim)
+
+    def forward(self, x: torch.Tensor, num_frames: int,
+                time_context: Optional[torch.Tensor]) -> torch.Tensor:
+        bt, s, c = x.shape
+        b = bt // num_frames
+        x = x.reshape(b, num_frames, s, c).transpose(1, 2).reshape(b * s, num_frames, c)
+        x = self.ff_in.residual(x, self.norm_in)
+        a = self.attn1
+        x = fused_temporal_self_attn(
+            x, self.norm1.weight, self.norm1.bias, a.to_q.weight, a.to_k.weight,
+            a.to_v.weight, a.to_out[0].weight, a.to_out[0].bias, self.heads,
+            self.norm1.eps)
+        y = self.attn2.cross(time_context).reshape(b, 1, 1, c)  # per video
+        x = (x.reshape(b, s, num_frames, c) + y).reshape(b * s, num_frames, c)
+        x = self.ff.residual(x, self.norm3)
+        return x.reshape(b, s, num_frames, c).transpose(1, 2).reshape(bt, s, c)
+
+
+class SpatialVideoTransformer(nn.Module):
+    """Spatial + temporal transformer pair merged by a learned AlphaBlender;
+    ``(b*t, c, h, w)`` in and out. The temporal cross-attention context is the
+    first frame's context of each video."""
+
+    def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
+                 context_dim: Optional[int] = None, merge_factor: float = 0.5,
+                 merge_strategy: str = "learned_with_images",
+                 max_time_embed_period: int = 10000):
+        super().__init__()
+        inner = heads * dim_head
+        self.channels = channels
+        self.max_time_embed_period = max_time_embed_period
+        self.norm = GroupNorm32(channels, eps=1e-6)
+        self.proj_in = nn.Linear(channels, inner)
+        self.transformer_blocks = nn.ModuleList(
+            TransformerBlock(inner, heads, dim_head, context_dim) for _ in range(depth))
+        self.time_stack = nn.ModuleList(
+            TemporalTransformerBlock(inner, heads, dim_head, context_dim)
+            for _ in range(depth))
+        self.time_pos_embed = nn.Sequential(
+            nn.Linear(channels, channels * 4), nn.SiLU(), nn.Linear(channels * 4, inner))
+        self.time_mixer = AlphaBlender(merge_factor, merge_strategy)
+        self.proj_out = nn.Linear(inner, channels)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
+                num_frames: int) -> torch.Tensor:
+        bt, c, h, w = x.shape
+        time_context = None
+        if context is not None:
+            time_context = context.reshape(bt // num_frames, num_frames,
+                                           *context.shape[1:])[:, 0]
+        xs = self.proj_in(to_rows(self.norm(x)))
+        frame_idx = torch.arange(num_frames, device=x.device).repeat(bt // num_frames)
+        t_emb = timestep_embedding(frame_idx, self.channels, self.max_time_embed_period)
+        pos = self.time_pos_embed(t_emb.to(xs.dtype))[:, None]
+        for block, time_block in zip(self.transformer_blocks, self.time_stack):
+            xs = block(xs, context)
+            x_mix = time_block(xs + pos, num_frames, time_context)
+            xs = self.time_mixer(xs, x_mix)
+        return from_rows(self.proj_out(xs), h, w) + x

@@ -1,0 +1,209 @@
+"""Vista's temporal VAE decoder (counterpart of the decoder half of
+``vista_tpu/models/vae.py``).
+
+Latents ``(b*t, z, h, w)`` frame-major -> pixels ``(b*t, 3, 8h, 8w)``. Every
+ResnetBlock carries a ``(3, 1, 1)`` temporal conv branch blended with a
+learned ``alpha = sigmoid(mix_factor)`` as ``alpha * x_t + (1 - alpha) * x``,
+and the output conv adds a 3-D ``time_mix_conv``. Images are held
+channels-last; the frame convs see ``(b, c, t, h, w)`` channels-last-3d
+views. The decoder owes no hand-written kernel: its convs and its mid-block
+single-head attention are plain PyTorch (the JAX package left them to XLA),
+and the attention is explicit ``matmul``/``softmax`` with fp32 scores.
+Parameter names follow ``vista_tpu/utils/torch_import.py:vae_decoder_key_map``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from vista_tpu_torch.models.layers import GroupNorm32
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    ch: int = 128
+    ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    in_channels: int = 3
+    out_channels: int = 3
+    z_channels: int = 4
+    double_z: bool = True
+    video_kernel: Tuple[int, int, int] = (3, 1, 1)
+    scale_factor: float = 0.18215
+    dtype: str = "bfloat16"
+    attn_type: str = "vanilla"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def downsample_factor(self) -> int:
+        return 2 ** (len(self.ch_mult) - 1)
+
+    def tiny(self) -> "VAEConfig":
+        return dataclasses.replace(self, ch=16, ch_mult=(1, 2), num_res_blocks=1)
+
+
+def _video(x: torch.Tensor, num_frames: int) -> torch.Tensor:
+    """``(b*t, c, h, w)`` -> ``(b, c, t, h, w)`` view."""
+    bt, c, h, w = x.shape
+    return x.reshape(bt // num_frames, num_frames, c, h, w).transpose(1, 2)
+
+
+def _frames(x: torch.Tensor) -> torch.Tensor:
+    """``(b, c, t, h, w)`` -> ``(b*t, c, h, w)``."""
+    b, c, t, h, w = x.shape
+    return x.transpose(1, 2).reshape(b * t, c, h, w)
+
+
+def _frame_conv(channels: int) -> nn.Conv3d:
+    return nn.Conv3d(channels, channels, (3, 1, 1), padding=(1, 0, 0))
+
+
+class VAEResnetBlock(nn.Module):
+    """GN(eps 1e-6) - SiLU - conv - GN - SiLU - conv, 1x1-conv shortcut."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.norm1 = GroupNorm32(in_ch, eps=1e-6)
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.norm2 = GroupNorm32(out_ch, eps=1e-6)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        if in_ch != out_ch:
+            self.nin_shortcut = nn.Conv2d(in_ch, out_ch, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        if hasattr(self, "nin_shortcut"):
+            x = self.nin_shortcut(x)
+        return x + h
+
+
+class _TimeStack(nn.Module):
+    """GN - SiLU - frame conv - GN - SiLU - frame conv over a whole video
+    (upstream ResBlock with ``skip_t_emb``: keys ``in_layers.{0,2}``,
+    ``out_layers.{0,3}``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.in_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(),
+                                       _frame_conv(channels))
+        self.out_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(),
+                                        nn.Dropout(0.0), _frame_conv(channels))
+
+    def forward(self, x5: torch.Tensor) -> torch.Tensor:
+        return self.out_layers(self.in_layers(x5))
+
+
+class VideoResnetBlock(VAEResnetBlock):
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(in_ch, out_ch)
+        self.time_stack = _TimeStack(out_ch)
+        self.mix_factor = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
+        x_v = _video(super().forward(x), num_frames)
+        x_t = x_v + self.time_stack(x_v)
+        alpha = torch.sigmoid(self.mix_factor.float()).to(x.dtype)
+        return _frames(alpha * x_t + (1.0 - alpha) * x_v)
+
+
+class VAEAttnBlock(nn.Module):
+    """Single-head self-attention over the spatial tokens, per frame."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.norm = GroupNorm32(channels, eps=1e-6)
+        self.q, self.k, self.v, self.proj_out = (nn.Conv2d(channels, channels, 1)
+                                                 for _ in range(4))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        y = self.norm(x)
+        rows = lambda t: t.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        q, k, v = rows(self.q(y)), rows(self.k(y)), rows(self.v(y))
+        out = torch.empty_like(q)
+        for i in range(b):  # one frame at a time bounds the (s, s) scores
+            s = torch.matmul(q[i].float(), k[i].float().t()) * (c ** -0.5)
+            out[i] = torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v[i])
+        out = out.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        return x + self.proj_out(out)
+
+
+class VAEUpsample(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class AE3DConv(nn.Conv2d):
+    """The output conv: a 2-D conv, then a 3-D ``time_mix_conv`` over frames."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(in_ch, out_ch, 3, padding=1)
+        self.time_mix_conv = _frame_conv(out_ch)
+
+    def forward(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
+        h = super().forward(x)
+        return _frames(self.time_mix_conv(_video(h, num_frames)))
+
+
+class _Level(nn.Module):
+    pass
+
+
+class VideoVAEDecoder(nn.Module):
+    """``decoder(z, num_frames)``: z ``(b*t, z, h, w)`` -> fp32 pixels."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        if cfg.attn_type not in ("vanilla", "vanilla-xformers"):
+            raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not ported yet")
+        if tuple(cfg.video_kernel) != (3, 1, 1):
+            raise NotImplementedError("only the (3, 1, 1) temporal kernel is ported")
+        self.cfg = cfg
+        block_in = cfg.ch * cfg.ch_mult[-1]
+        self.conv_in = nn.Conv2d(cfg.z_channels, block_in, 3, padding=1)
+        self.mid = _Level()
+        self.mid.block_1 = VideoResnetBlock(block_in, block_in)
+        self.mid.attn_1 = VAEAttnBlock(block_in)
+        self.mid.block_2 = VideoResnetBlock(block_in, block_in)
+        levels = []
+        in_ch = block_in
+        for level in reversed(range(len(cfg.ch_mult))):
+            out_ch = cfg.ch * cfg.ch_mult[level]
+            up = _Level()
+            up.block = nn.ModuleList()
+            for _ in range(cfg.num_res_blocks + 1):
+                up.block.append(VideoResnetBlock(in_ch, out_ch))
+                in_ch = out_ch
+            if level != 0:
+                up.upsample = VAEUpsample(in_ch)
+            levels.insert(0, up)
+        self.up = nn.ModuleList(levels)
+        self.norm_out = GroupNorm32(in_ch, eps=1e-6)
+        self.conv_out = AE3DConv(in_ch, cfg.out_channels)
+
+    def forward(self, z: torch.Tensor, num_frames: int) -> torch.Tensor:
+        h = self.conv_in(z.to(self.cfg.compute_dtype).contiguous(
+            memory_format=torch.channels_last))
+        h = self.mid.block_1(h, num_frames)
+        h = self.mid.attn_1(h)
+        h = self.mid.block_2(h, num_frames)
+        for level in reversed(range(len(self.up))):
+            for block in self.up[level].block:
+                h = block(h, num_frames)
+            if level != 0:
+                h = self.up[level].upsample(h)
+        h = F.silu(self.norm_out(h))
+        return self.conv_out(h, num_frames).float()

@@ -1,0 +1,159 @@
+"""Build, load and count the hand-written CUDA kernels of ``csrc/``.
+
+The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, at first use, under ``build/`` at the
+root of the checkout; the file name carries a hash of the sources, so an
+edited source is rebuilt and an unchanged one is not. The library is
+loaded with ``ctypes``: pointers and the stream travel as ``c_void_p``, and
+every C entry returns ``cudaGetLastError()`` of its launch.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on a machine without ``nvcc`` or a card.
+
+Launch counts: each kernel wrapper calls :func:`count` exactly where it
+launches its kernel, with the kernel's name and the call site, so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+# kernel name -> launches; "kernel/site" -> launches
+LAUNCHES: collections.Counter = collections.Counter()
+SITES: collections.Counter = collections.Counter()
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "vk_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "vk_ln_linear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "vk_linear_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vk_gn_silu_conv3": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+build_log = ""
+
+
+def count(kernel: str, site: str) -> None:
+    LAUNCHES[kernel] += 1
+    SITES[f"{kernel}/{site}"] += 1
+
+
+def reset_counts() -> None:
+    LAUNCHES.clear()
+    SITES.clear()
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_digest() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def library_path() -> Path:
+    return BUILD / f"libvista_kernels-{source_digest()}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists."""
+    global build_log
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, so)
+    so.with_suffix(".log").write_text(build_log)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry ``name`` on the current stream; raise on a launch error."""
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(lib(), name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
+    """What every kernel asks of a tensor argument: on the card, of the
+    kernel's type, contiguous, 16-byte aligned, and of the expected shape."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a 16-byte aligned tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def on_cpu(*tensors) -> bool:
+    """True when the wrapper should take the plain version: only for tensors
+    that lie on the CPU. A tensor on any other device than CPU or CUDA is
+    refused."""
+    devs = {t.device.type for t in tensors if t is not None}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        return False
+    raise ValueError(f"tensors on unsupported or mixed devices: {sorted(devs)}")
