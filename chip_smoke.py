@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py            # every phase (needs one H100)
     python3 chip_smoke.py --profile  # and a traced 576x1024 request
@@ -7,13 +7,23 @@ Phases, each timed on its own line:
 
 1. card: the card's name and power limit (nvidia-smi); exit non-zero when
    ``torch.cuda.is_available()`` is false;
-2. build: compile the kernels of ``vista_tpu_torch/csrc/`` with nvcc;
+2. build: compile the kernels of ``vista_tpu_torch/csrc/`` with nvcc (one
+   process per source, all started together);
 3. kernels: each hand-written kernel against its plain PyTorch version (fp32
-   on the same bf16 inputs) at the shapes of the main path, with times;
+   on the same bf16 inputs) at the shapes of the main paths, every output,
+   with its time, the plain version's, one PyTorch library call's where one
+   computes the same function, and the least time the card could take;
 4. slice: full-width VideoUNet + temporal VAE decoder in bf16 with seeded
    random weights, answering sampling requests through ``VistaEngine.sample``
    and ``decode_first_stage`` (triangle CFG 2.5, frame 0 pinned, 14/3
-   decode), with the launch counts of every kernel.
+   decode), with the launch counts of every kernel;
+5. train: the phase-2 stage-1 recipe (``configs/vista_phase2_stage1.yaml``:
+   320x576, 25 frames, batch 1, LoRA + action control, ``lora_only``, remat,
+   dynamics loss) at full width with seeded random weights and non-zero
+   adapters: a small slice of the step on the card in bf16 against the CPU
+   in fp32, three optimizer steps with the launch counts of every kernel,
+   one forward + backward with every UNet weight requiring grad, and a
+   traced step (device time by kernel group).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -23,6 +33,7 @@ before it. Tables too long for the end of the output go to ``chiprun_out/``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -31,10 +42,13 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
-TOL = 1e-2  # max|kernel - plain| / max|plain|
+TOL = 1e-2  # max|kernel - plain| / max|plain|, per output
 OUT = Path("chiprun_out")
 CARD = ""
+PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes per second
 
 KERNELS = {
     "attention": dict(
@@ -54,6 +68,36 @@ KERNELS = {
     "gn_silu_conv3": dict(
         route="cuda", source="vista_tpu_torch/csrc/gn_silu_conv3.cu",
         replaces="vista_tpu/ops/temporal_conv.py:357 (_gn_conv3_kernel)"),
+    "layer_norm": dict(
+        route="cuda", source="vista_tpu_torch/csrc/layer_norm.cu",
+        replaces="vista_tpu/ops/norms.py:140 (_ln_kernel)"),
+    "attention_bwd": dict(
+        route="cuda", source="vista_tpu_torch/csrc/attention_bwd.cu",
+        replaces="vista_tpu/ops/flash_attention.py:346 (_bwd_dq_kernel); "
+                 "vista_tpu/ops/flash_attention.py:368 (_bwd_dkv_kernel); "
+                 "vista_tpu/ops/tiny_attention.py:201 (_tiny_bwd_kernel)"),
+    "ff_bwd": dict(
+        route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu",
+        replaces="vista_tpu/ops/fused_ff.py:307 (_ff_bwd_kernel); "
+                 "vista_tpu/ops/fused_ff.py:434 (_ff_bwd_wide_kernel)"),
+    "conv3": dict(
+        route="cuda", source="vista_tpu_torch/csrc/gn_silu_conv3.cu (vk_conv3)",
+        replaces="vista_tpu/ops/temporal_conv.py:155 (_conv3_kernel)"),
+}
+SAMPLE_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3")
+TRAIN_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3",
+                 "layer_norm", "attention_bwd", "ff_bwd", "conv3")
+# the demangled names of each family's device functions, for the profiles
+SYMBOLS = {
+    "attention": ("vk::attention_kernel<",),
+    "ln_linear": ("vk::ln_linear_kernel",),
+    "linear_residual": ("vk::linear_residual_kernel",),
+    "gn_silu_conv3": ("vk::gn_silu_conv3_kernel<true>",),
+    "conv3": ("vk::gn_silu_conv3_kernel<false>",),
+    "layer_norm": ("vk::layer_norm_kernel",),
+    "attention_bwd": ("vk::attn_bwd_",),
+    "ff_bwd": ("vk::ff_bwd_dh_kernel", "vk::gemm_f32_kernel", "vk::ln_bwd_kernel",
+               "vk::wgrad_kernel", "vk::col_sum_kernel", "vk::sum_splits_kernel"),
 }
 
 
@@ -110,35 +154,59 @@ def time_ms(fn, reps=5):
     return start.elapsed_time(stop) / reps
 
 
-def compare(name, shape, kernel_fn, plain_fn, plain_inputs_fn, rows, reps=5):
-    """Run the kernel, its plain version in fp32 on the same bf16 inputs,
-    compare, and time both (the plain version on the bf16 inputs)."""
+def bound(flops, nbytes):
+    """The least time the card could take: bf16 tensor-core peak against HBM."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def compare(name, shape, kernel_fn, plain_fn, plain_inputs_fn, rows, flops, nbytes,
+            library_fn=None, reps=5):
+    """Run the kernel and its plain version in fp32 on the same bf16 inputs,
+    compare every output (each normalised by its own largest magnitude), and
+    time the kernel, the plain version on the bf16 inputs and the library
+    call."""
     got = kernel_fn()
     torch.cuda.synchronize()
     ref = plain_inputs_fn()
     if isinstance(got, torch.Tensor):
         got, ref = [got], [ref]
-    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
-    scale = max(r.float().abs().max().item() for r in ref)
-    rel = err / max(scale, 1e-30)
+    errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(got, ref)]
+    rels = [e / max(r.float().abs().max().item(), 1e-30) for e, r in zip(errs, ref)]
     del got, ref
+    torch.cuda.empty_cache()
     ms = time_ms(kernel_fn, reps)
     plain_ms = time_ms(plain_fn, max(1, reps // 2))
-    ok = math.isfinite(rel) and rel <= TOL
-    rows.append(dict(kernel=name, shape=shape, max_abs_err=err, rel_err=rel,
-                     ms=ms, plain_ms=plain_ms, ok=ok))
-    log(f"  {name:16s} {shape:34s} rel {rel:.2e} abs {err:.3e}  "
-        f"kernel {ms:9.3f} ms  plain {plain_ms:9.3f} ms  {'ok' if ok else 'FAIL'}")
+    library_ms = library_fn() if library_fn is not None else None
+    bound_ms, bound_by = bound(flops, nbytes)
+    rel = max(rels)
+    ok = all(math.isfinite(r) and r <= TOL for r in rels)
+    rows.append(dict(kernel=name, shape=shape, max_abs_err=max(errs), rel_err=rel,
+                     rel_err_per_output=rels, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, ok=ok))
+    lib = "none" if library_ms is None else f"{library_ms:8.3f} ms"
+    log(f"  {name:16s} {shape:38s} rel {rel:.2e}  kernel {ms:9.3f} ms  plain "
+        f"{plain_ms:9.3f} ms  library {lib}  bound {bound_ms:.3f} ms ({bound_by})  "
+        f"{'ok' if ok else 'FAIL'}")
     torch.cuda.empty_cache()
     return ok
 
 
+def sdpa_layout(t, heads):
+    b, s, hd = t.shape
+    return t.view(b, s, heads, hd // heads).transpose(1, 2).contiguous()
+
+
 def kernel_checks():
-    from vista_tpu_torch.ops.attention import attention_packed, attention_plain
+    from vista_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plain,
+                                               attention_forward, attention_packed,
+                                               attention_plain)
+    from vista_tpu_torch.ops.fused_ff import ff_bwd, ff_bwd_plain
     from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_plain,
                                             ln_linear, ln_linear_plain)
-    from vista_tpu_torch.ops.temporal_conv import (gn_silu_conv3,
-                                                   gn_silu_conv3_plain)
+    from vista_tpu_torch.ops.norms import layer_norm_kernel, layer_norm_plain
+    from vista_tpu_torch.ops.temporal_conv import (_flipped_taps, conv3, conv3_plain,
+                                                   gn_silu_conv3, gn_silu_conv3_plain)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -149,8 +217,9 @@ def kernel_checks():
 
     f32 = lambda *ts: [None if t is None else t.float() for t in ts]
     rows, ok = [], True
+    sdpa = F.scaled_dot_product_attention
 
-    # K1: (batch rows, tokens, heads) at the main path's shapes; the ds1
+    # K1: (batch rows, tokens, heads) at the main paths' shapes; the ds1
     # and 2880-token cases use a few of the 50 frames so that the plain
     # fp32 logits fit.
     for b, s, h, tag in [(2, 9216, 5, "ds1 576x1024"), (8, 2304, 10, "ds2 576x1024"),
@@ -159,38 +228,52 @@ def kernel_checks():
                          (50, 180, 20, "ds4 320x576"), (50, 45, 20, "mid 320x576"),
                          (18432, 25, 5, "temporal ds1 576x1024")]:
         q, k, v = (rnd(b, s, h * 64) for _ in range(3))
+        q4, k4, v4 = (sdpa_layout(t, h) for t in (q, k, v))
         ok &= compare("attention", f"{tag} ({b},{s},{h}x64)",
                       lambda: attention_packed(q, k, v, h),
                       lambda: attention_plain(q, k, v, h),
-                      lambda: attention_plain(*f32(q, k, v), h), rows)
-        del q, k, v
+                      lambda: attention_plain(*f32(q, k, v), h), rows,
+                      4 * b * h * s * s * 64, 2 * 4 * b * s * h * 64,
+                      lambda: time_ms(lambda: sdpa(q4, k4, v4)))
+        del q, k, v, q4, k4, v4
     # K2 and K3 at c = 320 (ds1 rows) and 1280 (ds4 rows), 576x1024.
     for m, c in [(50 * 9216, 320), (50 * 576, 1280)]:
         x = rnd(m, c)
         lw, lb = rnd(c, std=0.2, dtype=torch.float32) + 1, rnd(c, std=0.2, dtype=torch.float32)
+        lwb, lbb = lw.to(bf), lb.to(bf)
         w = rnd(3 * c, c, std=c ** -0.5)
         ok &= compare("ln_linear", f"split q/k/v ({m},{c})->3x{c}",
                       lambda: ln_linear(x, lw, lb, w, None, "split", 3),
                       lambda: ln_linear_plain(x, lw, lb, w, None, "split", 3),
-                      lambda: ln_linear_plain(*f32(x, lw, lb, w), None, "split", 3), rows)
+                      lambda: ln_linear_plain(*f32(x, lw, lb, w), None, "split", 3), rows,
+                      2 * m * c * 3 * c, 2 * (m * c + 3 * c * c + 3 * m * c),
+                      lambda: time_ms(lambda: F.linear(F.layer_norm(x, (c,), lwb, lbb), w)))
         w1, b1 = rnd(8 * c, c, std=c ** -0.5), rnd(8 * c, std=0.1, dtype=torch.float32)
+        b1b = b1.to(bf)
         ok &= compare("ln_linear", f"geglu ({m},{c})->{4 * c}",
                       lambda: ln_linear(x, lw, lb, w1, b1, "geglu"),
                       lambda: ln_linear_plain(x, lw, lb, w1, b1, "geglu"),
-                      lambda: ln_linear_plain(*f32(x, lw, lb, w1, b1), "geglu"), rows)
+                      lambda: ln_linear_plain(*f32(x, lw, lb, w1, b1), "geglu"), rows,
+                      2 * m * c * 8 * c, 2 * (m * c + 8 * c * c + 4 * m * c),
+                      lambda: time_ms(lambda: F.linear(F.layer_norm(x, (c,), lwb, lbb), w1, b1b)))
         del w, w1
         hg = rnd(m, 4 * c)
         w2, b2 = rnd(c, 4 * c, std=(4 * c) ** -0.5), rnd(c, std=0.1, dtype=torch.float32)
+        b2b = b2.to(bf)
         ok &= compare("linear_residual", f"ff out ({m},{4 * c})->{c}",
                       lambda: linear_residual(hg, w2, b2, x),
                       lambda: linear_residual_plain(hg, w2, b2, x),
-                      lambda: linear_residual_plain(*f32(hg, w2, b2, x)), rows)
+                      lambda: linear_residual_plain(*f32(hg, w2, b2, x)), rows,
+                      2 * m * 4 * c * c, 2 * (4 * m * c + 4 * c * c + 2 * m * c),
+                      lambda: time_ms(lambda: torch.addmm(b2b, hg, w2.t()) + x))
         del hg
         o, wo = rnd(m, c), rnd(c, c, std=c ** -0.5)
         ok &= compare("linear_residual", f"attn out ({m},{c})->{c}",
                       lambda: linear_residual(o, wo, b2, x),
                       lambda: linear_residual_plain(o, wo, b2, x),
-                      lambda: linear_residual_plain(*f32(o, wo, b2, x)), rows)
+                      lambda: linear_residual_plain(*f32(o, wo, b2, x)), rows,
+                      2 * m * c * c, 2 * (3 * m * c + c * c),
+                      lambda: time_ms(lambda: torch.addmm(b2b, o, wo.t()) + x))
         del x, o
     # K4 at (50, 9216, 320) and (50, 576, 1280), both epilogues, t = 25.
     for bt, s, c in [(50, 9216, 320), (50, 576, 1280)]:
@@ -198,18 +281,88 @@ def kernel_checks():
         sc, sh = rnd(bt, c, std=0.5, dtype=torch.float32), rnd(bt, c, std=0.5, dtype=torch.float32)
         w, b = rnd(c, c, 3, 1, 1, std=(3 * c) ** -0.5), rnd(c, std=0.1, dtype=torch.float32)
         emb = rnd(bt, c, dtype=torch.float32)
+        m = bt * s
         ok &= compare("gn_silu_conv3", f"emb ({bt},{s},{c})",
                       lambda: gn_silu_conv3(x, sc, sh, w, b, 25, emb=emb),
                       lambda: gn_silu_conv3_plain(x, sc, sh, w, b, 25, emb=emb),
-                      lambda: gn_silu_conv3_plain(*f32(x, sc, sh, w, b), 25, emb=emb), rows)
+                      lambda: gn_silu_conv3_plain(*f32(x, sc, sh, w, b), 25, emb=emb), rows,
+                      6 * m * c * c, 2 * (2 * m * c + 3 * c * c))
         rs = torch.full((1,), 0.4, device=dev)
         ok &= compare("gn_silu_conv3", f"res ({bt},{s},{c})",
                       lambda: gn_silu_conv3(x, sc, sh, w, b, 25, residual=x, res_scale=rs),
                       lambda: gn_silu_conv3_plain(x, sc, sh, w, b, 25, residual=x,
                                                   res_scale=rs),
                       lambda: gn_silu_conv3_plain(*f32(x, sc, sh, w, b), 25,
-                                                  residual=x.float(), res_scale=rs), rows)
+                                                  residual=x.float(), res_scale=rs), rows,
+                      6 * m * c * c, 2 * (3 * m * c + 3 * c * c))
         del x
+
+    # The training path's kernels at the phase-2 shapes: 320x576 -> 40x72
+    # latents, 25 frames, batch 1.
+    for shape in [(72000, 320), (2880, 25, 320), (18000, 640), (4500, 1280)]:
+        c = shape[-1]
+        x = rnd(*shape, std=2.0)
+        lw, lb = rnd(c, std=0.1, dtype=torch.float32) + 1, rnd(c, std=0.1, dtype=torch.float32)
+        lwb, lbb = lw.to(bf), lb.to(bf)
+        n = x.numel()
+        ok &= compare("layer_norm", f"{tuple(shape)}",
+                      lambda: layer_norm_kernel(x, lw, lb),
+                      lambda: layer_norm_plain(x, lw, lb),
+                      lambda: layer_norm_plain(*f32(x, lw, lb)), rows, 8 * n, 2 * 2 * n,
+                      lambda: time_ms(lambda: F.layer_norm(x, (c,), lwb, lbb)))
+        del x
+    for b, s, h, tag in [(25, 2880, 5, "ds1"), (25, 720, 10, "ds2"), (25, 180, 20, "ds4"),
+                         (25, 45, 20, "mid"), (2880, 25, 5, "temporal ds1"),
+                         (720, 25, 10, "temporal ds2")]:
+        q, k, v, do = (rnd(b, s, h * 64) for _ in range(4))
+        o, lse = attention_forward(q, k, v, h, want_lse=True)
+        ok &= compare("attention", f"fwd+lse {tag} 320x576 ({b},{s},{h}x64)",
+                      lambda: attention_forward(q, k, v, h, want_lse=True),
+                      lambda: attention_plain(q, k, v, h, want_lse=True),
+                      lambda: attention_plain(*f32(q, k, v), h, want_lse=True), rows,
+                      4 * b * h * s * s * 64, 2 * 4 * b * s * h * 64 + 4 * b * h * s)
+        q4, k4, v4, do4 = (sdpa_layout(t, h) for t in (q, k, v, do))
+        q4.requires_grad_(), k4.requires_grad_(), v4.requires_grad_()
+
+        def sdpa_fwd_bwd():
+            q4.grad = k4.grad = v4.grad = None
+            sdpa(q4, k4, v4).backward(do4)
+
+        def sdpa_bwd_ms():
+            with torch.no_grad():
+                fwd = time_ms(lambda: sdpa(q4, k4, v4))
+            return time_ms(sdpa_fwd_bwd) - fwd
+
+        ok &= compare("attention_bwd", f"{tag} 320x576 ({b},{s},{h}x64)",
+                      lambda: attention_bwd(q, k, v, o, lse, do, h),
+                      lambda: attention_bwd_plain(q, k, v, o, lse, do, h),
+                      lambda: attention_bwd_plain(*f32(q, k, v, o, lse, do), h), rows,
+                      10 * b * h * s * s * 64, 2 * 8 * b * s * h * 64 + 4 * b * h * s,
+                      sdpa_bwd_ms)
+        del q, k, v, do, o, lse, q4, k4, v4, do4
+    for m, c in [(72000, 320), (18000, 640), (4500, 1280)]:
+        x, dy = rnd(m, c), rnd(m, c)
+        lw, lb = rnd(c, std=0.1, dtype=torch.float32) + 1, rnd(c, std=0.1, dtype=torch.float32)
+        w1, b1 = rnd(8 * c, c, std=c ** -0.5), rnd(8 * c, std=0.1, dtype=torch.float32)
+        w2 = rnd(c, 4 * c, std=(4 * c) ** -0.5)
+        ok &= compare("ff_bwd", f"({m},{c}) all 7 grads",
+                      lambda: ff_bwd(x, lw, lb, w1, b1, w2, dy),
+                      lambda: ff_bwd_plain(x, lw, lb, w1, b1, w2, dy),
+                      lambda: ff_bwd_plain(*f32(x, lw, lb, w1, b1, w2, dy)), rows,
+                      64 * m * c * c, 2 * (3 * m * c + 2 * 12 * c * c), reps=3)
+        del x, dy
+    for bt, s, c in [(25, 2880, 320), (25, 720, 640)]:
+        gy = rnd(bt, s, c)
+        w = rnd(c, c, 3, 1, 1, std=(3 * c) ** -0.5)
+        wt = _flipped_taps(w)
+        g5 = gy.view(1, bt, s, c).permute(0, 3, 1, 2)[..., None]
+        ok &= compare("conv3", f"dx ({bt},{s},{c})",
+                      lambda: conv3(gy, wt, None, 25),
+                      lambda: conv3_plain(gy, wt, None, 25),
+                      lambda: conv3_plain(gy.float(), wt.float(), None, 25), rows,
+                      6 * bt * s * c * c, 2 * (2 * bt * s * c + 3 * c * c),
+                      lambda: time_ms(lambda: F.conv3d(g5, wt, padding=(1, 0, 0))))
+        del gy, g5
     OUT.mkdir(exist_ok=True)
     (OUT / "kernel_checks.json").write_text(json.dumps(dict(card=CARD, rows=rows), indent=1))
     if not ok:
@@ -227,8 +380,8 @@ REQUESTS = [  # (height, width, frames, steps)
 def random_init_(module, gen):
     """Seeded random weights, none zero: norms near 1, fan-in scaled weights,
     small biases, and random mix factors (including the parameters the
-    model zero-initialises, so that every kernel's output reaches the
-    result)."""
+    model zero-initialises, such as the LoRA ``up`` and action adapters, so
+    that every kernel's output and every adapter reaches the result)."""
     import torch.nn as nn
 
     with torch.no_grad():
@@ -244,6 +397,11 @@ def random_init_(module, gen):
                 else:
                     r = 0.02 * r
                 p.copy_(r)
+
+
+def init_engine(engine, gen):
+    for module in (engine.unet, engine.decoder, engine.encoder, engine.conditioner):
+        random_init_(module, gen)
 
 
 def requests_inputs(cfg, h, w, frames, gen, device):
@@ -283,29 +441,54 @@ def run_request(engine, inputs, steps):
     return lat, px, t1 - t0, time.perf_counter() - t1
 
 
-def slice_reference(seed):
-    """A small slice (widths the kernels take: head_dim 64, c % 32 == 0) on
-    the card in bf16 against the same weights and inputs in fp32 on the CPU
-    through the plain versions."""
-    import dataclasses
-
-    from vista_tpu_torch.engine.engine import EngineConfig, VistaEngine
+def small_cfg(train=False):
+    """Widths the kernels take (head_dim 64, c % 32 == 0), fp32; ``train``:
+    LoRA + action control and the phase-2 conditioner."""
+    from vista_tpu_torch.engine.engine import EngineConfig
 
     base = EngineConfig().tiny()
     unet = dataclasses.replace(base.unet, model_channels=64, num_head_channels=64,
                                context_dim=64, adm_in_channels=48, num_frames=5,
-                               dtype="float32")
-    cfg = dataclasses.replace(base, unet=unet, num_frames=5,
-                              vae=dataclasses.replace(base.vae, ch=32, dtype="float32"))
+                               dtype="float32", add_lora=train, action_control=train)
+    cond = base.conditioner
+    cond = dataclasses.replace(
+        cond, vector_outdim=16, action_control=train, ucg_rate=0.15 if train else 0.0,
+        ucg_keys=PHASE2_UCG_KEYS if train else cond.ucg_keys,
+        clip=dataclasses.replace(cond.clip, output_dim=64, dtype="float32"),
+        vae=dataclasses.replace(cond.vae, ch=32, dtype="float32"))
+    return dataclasses.replace(base, unet=unet, num_frames=5, conditioner=cond,
+                               vae=dataclasses.replace(base.vae, ch=32, dtype="float32"))
+
+
+def to_bf16(cfg):
+    cond = cfg.conditioner
+    return dataclasses.replace(
+        cfg, unet=dataclasses.replace(cfg.unet, dtype="bfloat16"),
+        vae=dataclasses.replace(cfg.vae, dtype="bfloat16"),
+        conditioner=dataclasses.replace(
+            cond, clip=dataclasses.replace(cond.clip, dtype="bfloat16"),
+            vae=dataclasses.replace(cond.vae, dtype="bfloat16")))
+
+
+def card_twin(cpu, cfg):
+    """The CPU engine's weights in a bf16 engine on the card."""
+    from vista_tpu_torch.engine.engine import VistaEngine
+
+    gpu = VistaEngine(to_bf16(cfg), "cuda")
+    for name in ("unet", "decoder", "encoder", "conditioner"):
+        getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+    return gpu
+
+
+def slice_reference(seed):
+    """A small slice on the card in bf16 against the same weights and inputs
+    in fp32 on the CPU through the plain versions."""
+    from vista_tpu_torch.engine.engine import VistaEngine
+
+    cfg = small_cfg()
     cpu = VistaEngine(cfg, "cpu")
-    gen = torch.Generator().manual_seed(seed)
-    random_init_(cpu.unet, gen)
-    random_init_(cpu.decoder, gen)
-    bf = dict(unet=dataclasses.replace(unet, dtype="bfloat16"),
-              vae=dataclasses.replace(cfg.vae, dtype="bfloat16"))
-    gpu = VistaEngine(dataclasses.replace(cfg, **bf), "cuda")
-    gpu.unet.load_state_dict(cpu.unet.state_dict())
-    gpu.decoder.load_state_dict(cpu.decoder.state_dict())
+    init_engine(cpu, torch.Generator().manual_seed(seed))
+    gpu = card_twin(cpu, cfg)
     inputs = requests_inputs(cfg, 64, 64, 5, torch.Generator().manual_seed(seed + 1), "cpu")
     ref_lat, ref_px, _, _ = run_request(cpu, inputs, 2)
     moved = [{k: v.cuda() for k, v in a.items()} if isinstance(a, dict)
@@ -319,16 +502,17 @@ def slice_reference(seed):
 
 
 def _kernel_group(name):
-    low = name.lower()
-    for k in KERNELS:
-        if f"{k}_kernel" in low:
+    for k, symbols in SYMBOLS.items():
+        if any(s in name for s in symbols):
             return f"K: {k}"
+    low = name.lower()
     rules = [("cuDNN layout", ("nchwtonhwc", "nhwctonchw", "converttensor")),
-             ("convs (cuDNN)", ("fprop", "conv")),
+             ("convs (cuDNN)", ("fprop", "dgrad", "wgrad", "conv")),
              ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass")),
              ("group norm", ("group_norm", "groupnorm", "rowwisemoments")),
              ("copies", ("copy", "catarray")),
              ("softmax", ("softmax",)),
+             ("fft", ("fft",)),
              ("upsample", ("upsample",)),
              ("reductions", ("reduce",)),
              ("elementwise", ("elementwise",))]
@@ -365,6 +549,7 @@ def _device_profile(label, fn):
     OUT.mkdir(exist_ok=True)
     (OUT / f"profile_{label}.txt").write_text(
         f"{CARD}\n" + prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
+    return dict(wall_s=wall, busy_s=total / 1e6, groups_ms={g: us / 1e3 for g, us in groups.items()})
 
 
 def profile_request(engine, cfg, gen):
@@ -380,6 +565,13 @@ def profile_request(engine, cfg, gen):
         out["lat"].to(cfg.vae.compute_dtype)))
 
 
+def missing_launches(kernels, sites):
+    from vista_tpu_torch.ops import _build
+
+    return ([k for k in kernels if _build.LAUNCHES.get(k, 0) == 0]
+            + [k for k in sites if _build.SITES.get(k, 0) == 0])
+
+
 def slice_run(seed, profile=False):
     from vista_tpu_torch.engine.engine import EngineConfig, VistaEngine
     from vista_tpu_torch.ops import _build
@@ -389,8 +581,7 @@ def slice_run(seed, profile=False):
     cfg = EngineConfig()
     engine = VistaEngine(cfg, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    random_init_(engine.unet, gen)
-    random_init_(engine.decoder, gen)
+    init_engine(engine, gen)
     n_unet = sum(p.numel() for p in engine.unet.parameters())
     log(f"  full-width VideoUNet {n_unet / 1e9:.3f} B params + VideoVAEDecoder, bf16, "
         f"seeded random weights ({time.perf_counter() - t0:.1f} s)")
@@ -424,15 +615,192 @@ def slice_run(seed, profile=False):
     OUT.mkdir(exist_ok=True)
     (OUT / "slice.json").write_text(json.dumps(dict(card=CARD, requests=results,
                                                     launches=launches), indent=1))
+    missing = missing_launches(SAMPLE_KERNELS, [
+        "attention/spatial-long", "attention/spatial-short", "attention/temporal",
+        "ln_linear/qkv", "ln_linear/ff", "linear_residual/ff",
+        "gn_silu_conv3/emb", "gn_silu_conv3/res"])
     if profile:
         phase("profile", profile_request, engine, cfg, gen)
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
-    needed = ["attention/spatial-long", "attention/spatial-short", "attention/temporal",
-              "ln_linear/qkv", "ln_linear/ff", "linear_residual/ff",
-              "gn_silu_conv3/emb", "gn_silu_conv3/res"]
-    missing += [k for k in needed if _build.SITES.get(k, 0) == 0]
     if missing:
-        raise SystemExit(f"kernels or call sites never launched on the main path: {missing}")
+        raise SystemExit(f"kernels or call sites never launched on the sampling path: {missing}")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 5
+
+PHASE2_UCG_KEYS = ("cond_frames_without_noise", "cond_frames", "command", "trajectory",
+                   "speed", "angle", "goal")
+TRAIN_TOL = 5e-2  # small train slice, bf16 on the card vs fp32 on the CPU
+TRAIN_STEPS = 3
+
+
+def phase2_cfg():
+    """configs/vista_phase2_stage1.yaml: the engine and the train recipe."""
+    from vista_tpu_torch.diffusion.loss import LossConfig
+    from vista_tpu_torch.engine.engine import EngineConfig
+    from vista_tpu_torch.engine.training import TrainConfig
+
+    base = EngineConfig()
+    cfg = dataclasses.replace(
+        base, unet=dataclasses.replace(base.unet, add_lora=True, action_control=True,
+                                       remat=True),
+        conditioner=dataclasses.replace(base.conditioner, action_control=True, ucg_rate=0.15,
+                                        ucg_keys=PHASE2_UCG_KEYS))
+    train = TrainConfig(learning_rate=5e-5, warmup_steps=1000, grad_clip=0.3,
+                        policy="lora_only", ema_decay=0.9999,
+                        loss=LossConfig(num_frames=25, sigma_p_mean=1.0, sigma_p_std=1.6,
+                                        weighting="v", use_additional_loss=True,
+                                        additional_loss_weight=0.1, replace_cond_frames=True))
+    return cfg, train
+
+
+def train_batch(h, w, frames, gen, device):
+    """Synthetic clip in [-1, 1] and its conditioning scalars and actions."""
+    u = lambda *shape: torch.rand(*shape, generator=gen, device=device) * 2 - 1
+    return {"frames": u(1, frames, 3, h, w), "fps_id": torch.full((1,), 9.0, device=device),
+            "motion_bucket_id": torch.full((1,), 127.0, device=device),
+            "cond_aug": torch.full((1,), 0.02, device=device),
+            "command": torch.ones(1, 1, device=device), "trajectory": u(1, 8) * 10,
+            "speed": u(1, 4) * 10, "angle": u(1, 4), "goal": u(1, 2) * 10}
+
+
+def train_reference(seed):
+    """The phase-2 step at a small size: loss and adapter gradients on the
+    card in bf16 against the same weights, batch and draws on the CPU in fp32."""
+    from vista_tpu_torch.engine.engine import VistaEngine
+    from vista_tpu_torch.engine.training import Trainer, draw_train
+
+    _, train = phase2_cfg()
+    train = dataclasses.replace(train, loss=dataclasses.replace(train.loss, num_frames=5))
+    cfg = small_cfg(train=True)
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, remat=True))
+    cpu = VistaEngine(cfg, "cpu")
+    init_engine(cpu, torch.Generator().manual_seed(seed))
+    gpu = card_twin(cpu, cfg)
+    gen = torch.Generator().manual_seed(seed + 1)
+    batch = train_batch(64, 64, 5, gen, "cpu")
+    draws = draw_train(cpu, train, batch, gen)
+    out = {}
+    for name, engine in (("cpu", cpu), ("card", gpu)):
+        dev = engine.device
+        trainer = Trainer(engine, train)
+        move = lambda t: t.to(dev)
+        d = dataclasses.replace(
+            draws, posterior=move(draws.posterior), cond_aug=move(draws.cond_aug),
+            ucg_keep={k: move(v) for k, v in draws.ucg_keep.items()},
+            loss=dataclasses.replace(draws.loss, **{f.name: move(getattr(draws.loss, f.name))
+                                                    for f in dataclasses.fields(draws.loss)}))
+        loss, _ = trainer.loss_and_grads({k: move(v) for k, v in batch.items()}, d)
+        grads = trainer.grads()
+        out[name] = (float(loss), torch.cat([g.flatten().cpu() for g in grads.values()]))
+    (loss_ref, g_ref), (loss, g) = out["cpu"], out["card"]
+    rel_loss = abs(loss - loss_ref) / abs(loss_ref)
+    rel_grad = float((g - g_ref).abs().max() / g_ref.abs().max())
+    log(f"  small train step: loss card {loss:.6f} cpu {loss_ref:.6f} (rel {rel_loss:.3e}); "
+        f"adapter grads max|card - cpu| / max|cpu| = {rel_grad:.3e} over {g.numel()} values "
+        f"(limit {TRAIN_TOL})")
+    if not (rel_loss <= TRAIN_TOL and rel_grad <= TRAIN_TOL):
+        raise SystemExit("the small train step disagrees with the CPU reference")
+
+
+def train_run(seed):
+    from vista_tpu_torch.engine.engine import VistaEngine
+    from vista_tpu_torch.engine.training import Trainer, draw_train
+    from vista_tpu_torch.ops import _build
+
+    phase("train-reference", train_reference, seed)
+    t0 = time.perf_counter()
+    cfg, tcfg = phase2_cfg()
+    engine = VistaEngine(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    init_engine(engine, gen)
+    trainer = Trainer(engine, tcfg)
+    n_train = sum(m.numel() for m in trainer.master.values())
+    n_unet = sum(p.numel() for p in engine.unet.parameters())
+    log(f"  phase-2 stage-1 engine: VideoUNet {n_unet / 1e9:.3f} B params "
+        f"({n_train / 1e6:.1f} M train: LoRA + action adapters), CLIP ViT-H, VAE encoder; "
+        f"bf16, seeded random weights, remat ({time.perf_counter() - t0:.1f} s)")
+    # a host copy of every frozen tensor, so that the peak stays the step's
+    frozen = {f"unet.{n}": p.detach().cpu() for n, p in engine.unet.named_parameters()
+              if n not in trainer.params}
+    for name in ("encoder", "conditioner"):
+        frozen.update({f"{name}.{n}": p.detach().cpu()
+                       for n, p in getattr(engine, name).named_parameters()})
+    start = {n: m.clone() for n, m in trainer.master.items()}
+    batch = train_batch(320, 576, 25, gen, "cuda")
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    for i in range(TRAIN_STEPS):
+        draws = draw_train(engine, tcfg, batch, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = trainer(batch, draws)
+        torch.cuda.synchronize()
+        m["seconds"] = time.perf_counter() - t1
+        steps.append(m)
+        log(f"  step {i}: loss {m['loss']:.5f} (main {m['loss_main']:.5f}, hf "
+            f"{m['loss_hf']:.5f}), grad norm {m['grad_norm']:.4e}, sigma "
+            f"{m['sigma_mean']:.3f}: {m['seconds']:.3f} s")
+        assert math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]), m
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(_build.LAUNCHES)
+    sites = dict(_build.SITES)
+    s_step = sum(m["seconds"] for m in steps[1:]) / (len(steps) - 1)
+    log(f"  train: {s_step:.3f} s/step (steps 2-{TRAIN_STEPS}; step 1 {steps[0]['seconds']:.3f} "
+        f"s), peak {peak:.2f} GiB; card {CARD}")
+    log(f"  launches over the {TRAIN_STEPS} steps: {json.dumps(sites, sort_keys=True)}")
+    missing = missing_launches(TRAIN_KERNELS, [
+        "layer_norm/spatial-long", "layer_norm/spatial-short", "layer_norm/temporal",
+        "attention/spatial-long", "attention/spatial-short", "attention/temporal",
+        "attention_bwd/spatial-long", "attention_bwd/spatial-short", "attention_bwd/temporal",
+        "ln_linear/ff", "linear_residual/ff", "ff_bwd/ff", "gn_silu_conv3/emb",
+        "gn_silu_conv3/res", "conv3/emb-dx", "conv3/res-dx"])
+    if missing:
+        raise SystemExit(f"kernels or call sites never launched on the train path: {missing}")
+    changed = [n for n, m in trainer.master.items() if not torch.equal(m, start[n])]
+    ema_moved = [n for n, e in trainer.ema.items() if not torch.equal(e, start[n])]
+    now = {f"unet.{n}": p for n, p in engine.unet.named_parameters()}
+    for name in ("encoder", "conditioner"):
+        now.update({f"{name}.{n}": p for n, p in getattr(engine, name).named_parameters()})
+    moved_frozen = [n for n, p in frozen.items() if not torch.equal(p, now[n].cpu())]
+    log(f"  adapters changed: {len(changed)} of {len(start)}; EMA moved: {len(ema_moved)}; "
+        f"frozen tensors changed: {len(moved_frozen)} of {len(frozen)}")
+    if len(changed) < len(start) // 2 or not ema_moved or moved_frozen:
+        raise SystemExit("the optimizer step touched the wrong tensors")
+    del frozen, start
+
+    # Every UNet weight requiring grad: every output of ff_bwd and conv3.
+    for p in engine.unet.parameters():
+        p.requires_grad_(True)
+    before = dict(_build.SITES)
+    t1 = time.perf_counter()
+    loss, _ = trainer.loss_and_grads(batch, draw_train(engine, tcfg, batch, gen))
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t1
+    named = dict(engine.unet.named_parameters())
+    need = [n for n in named if (".ff.net." in n or ".ff_in.net." in n or "time_stack.in_layers"
+                                 in n or "time_stack.out_layers" in n or "time_mixer" in n)]
+    bad = [n for n in need if named[n].grad is None or not bool(torch.isfinite(named[n].grad).all())]
+    new_sites = {k: v - before.get(k, 0) for k, v in _build.SITES.items() if v != before.get(k, 0)}
+    log(f"  every weight requiring grad: loss {float(loss):.5f}, {full_s:.3f} s, "
+        f"{len(need)} feed-forward / temporal-conv / mix grads, non-finite or missing: {bad}; "
+        f"launches {json.dumps(new_sites, sort_keys=True)}")
+    if bad or not new_sites.get("conv3/res-y") or not math.isfinite(float(loss)):
+        raise SystemExit("the full backward missed a gradient")
+    for n, p in named.items():
+        p.requires_grad_(n in trainer.params)
+        p.grad = None
+
+    prof = _device_profile("train_step", lambda: trainer(
+        batch, draw_train(engine, tcfg, batch, gen)))
+    OUT.mkdir(exist_ok=True)
+    (OUT / "train.json").write_text(json.dumps(dict(
+        card=CARD, steps=steps, s_per_step=s_step, peak_gib=peak, launches=sites,
+        full_backward_s=full_s, profile=prof), indent=1))
     return launches
 
 
@@ -447,16 +815,21 @@ def main():
     phase("build", build)
     log("kernel vs plain (fp32 on the same bf16 inputs):")
     rows = phase("kernels", kernel_checks)
-    launches = phase("slice", slice_run, args.seed, args.profile)
+    sample = phase("slice", slice_run, args.seed, args.profile)
+    train = phase("train", train_run, args.seed)
 
     kernels = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         timed = mine[0]  # the first (largest) main-path shape of the kernel
-        kernels.append(dict(name=name, **meta, launches=launches[name],
-                            max_abs_err=max(r["max_abs_err"] for r in mine),
-                            rel_err=max(r["rel_err"] for r in mine), shape=timed["shape"],
-                            ms=timed["ms"], plain_ms=timed["plain_ms"]))
+        by_path = {"sample": sample.get(name, 0), "train": train.get(name, 0)}
+        kernels.append(dict(
+            name=name, **meta,
+            launches=by_path["sample"] if name in SAMPLE_KERNELS else by_path["train"],
+            launches_by_path=by_path, max_abs_err=max(r["max_abs_err"] for r in mine),
+            rel_err=max(r["rel_err"] for r in mine), shape=timed["shape"], ms=timed["ms"],
+            plain_ms=timed["plain_ms"], bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
+            library_ms=timed["library_ms"]))
     log(f"card: {CARD}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

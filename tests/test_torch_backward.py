@@ -1,0 +1,138 @@
+"""The port's backward ops against ``jax.vjp`` of the JAX package's kernels,
+which run in interpret mode on the CPU (their custom VJPs are the Pallas
+backward kernels the port replaces). fp32 throughout, inputs and
+cotangents made with numpy from a seed; each bound is on
+max|port - JAX| / max|JAX| per output:
+
+- attention: ``flash_attention_packed`` at s = 256 (its dQ and dK/dV
+  kernels) and ``tiny_attention_packed`` at t = 25 (its row-group
+  backward), against the port's autograd Function (plain backward on the
+  CPU): 1e-4, the same fp32 math summed in another order;
+- feed-forward: ``fused_geglu_ff`` at c = 64 (``_ff_bwd_kernel``) and at
+  c = 704 with few rows (``_ff_bwd_wide_kernel``): 5e-3, because the TPU
+  kernels use tanh GELU and the port erf; and 1e-4 against ``jax.vjp`` of
+  the same chain written with erf GELU in jnp;
+- ``temporal_conv3`` (``_conv3_kernel`` for dx) against ``conv3_vjp``: 1e-4;
+- ``fused_gn_silu_conv3_emb`` / ``_res`` (recompute + conv VJP) against the
+  port's K4 Functions, every input's gradient: 1e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from vista_tpu.ops.flash_attention import flash_attention_packed
+from vista_tpu.ops.fused_ff import fused_geglu_ff as jax_ff
+from vista_tpu.ops.temporal_conv import (fused_gn_silu_conv3_emb as jax_emb,
+                                         fused_gn_silu_conv3_res as jax_res,
+                                         temporal_conv3)
+from vista_tpu.ops.tiny_attention import tiny_attention_packed
+from vista_tpu_torch.ops.attention import attention_packed
+from vista_tpu_torch.ops.fused_ff import fused_geglu_ff
+from vista_tpu_torch.ops.temporal_conv import (conv3_vjp, fused_gn_silu_conv3_emb,
+                                               fused_gn_silu_conv3_res)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _port_grads(fn, arrays, cot):
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    out = fn(*ts)
+    return out.detach().numpy(), [g.numpy() for g in
+                                  torch.autograd.grad(out, ts, torch.from_numpy(cot))]
+
+
+def _jax_grads(fn, arrays, cot):
+    out, vjp = jax.vjp(fn, *map(jnp.asarray, arrays))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+
+
+@pytest.mark.parametrize("kind,b,s,heads", [("flash", 2, 256, 2), ("tiny", 6, 25, 2)])
+def test_attention_backward_matches_jax(kind, b, s, heads):
+    rng = np.random.default_rng(11)
+    q, k, v, cot = (rng.standard_normal((b, s, heads * 64)).astype(np.float32) for _ in range(4))
+    jfn = flash_attention_packed if kind == "flash" else tiny_attention_packed
+    ref_out, ref = _jax_grads(lambda *a: jfn(*a, heads), (q, k, v), cot)
+    out, got = _port_grads(lambda *a: attention_packed(*a, heads), (q, k, v), cot)
+    assert _rel(out, ref_out) <= 1e-4
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 1e-4
+
+
+def _ff_erf_jax(x, ln_s, ln_b, w1, b1, w2, b2):
+    inner = w2.shape[0]
+    mean = jnp.mean(x, -1, keepdims=True)
+    var = jnp.mean(x * x, -1, keepdims=True) - mean * mean
+    xn = (x - mean) * jax.lax.rsqrt(var + 1e-5) * ln_s + ln_b
+    h = xn @ w1 + b1
+    hg = h[..., :inner] * jax.nn.gelu(h[..., inner:], approximate=False)
+    return x + hg @ w2 + b2
+
+
+@pytest.mark.parametrize("rows,c", [(48, 64), (16, 704)])
+def test_ff_backward_matches_jax(rows, c):
+    rng = np.random.default_rng(c)
+    f32 = lambda *shape, s=1.0: (rng.standard_normal(shape) * s).astype(np.float32)
+    x, cot = f32(rows, c), f32(rows, c)
+    ln_s, ln_b = 1 + f32(c, s=0.1), f32(c, s=0.1)
+    w1, b1 = f32(c, 8 * c, s=c ** -0.5), f32(8 * c, s=0.1)
+    w2, b2 = f32(4 * c, c, s=(4 * c) ** -0.5), f32(c, s=0.1)
+    jargs = (x, ln_s, ln_b, w1, b1, w2, b2)
+    targs = (x, ln_s, ln_b, np.ascontiguousarray(w1.T), b1, np.ascontiguousarray(w2.T), b2)
+    out, got = _port_grads(fused_geglu_ff, targs, cot)
+    got[3], got[5] = got[3].T, got[5].T  # Linear (out, in) -> JAX (in, out)
+    for jfn, bound in ((jax_ff, 5e-3), (_ff_erf_jax, 1e-4)):
+        ref_out, ref = _jax_grads(jfn, jargs, cot)
+        assert _rel(out, ref_out) <= bound
+        for g, r in zip(got, ref):
+            assert _rel(g, r) <= bound
+
+
+def _conv_data(seed, bt=10, s=8, cin=16, cout=24):
+    rng = np.random.default_rng(seed)
+    f32 = lambda *shape, sc=1.0: (rng.standard_normal(shape) * sc).astype(np.float32)
+    return f32, f32(bt, s, cin), f32(3, cin, cout, sc=(3 * cin) ** -0.5), f32(cout, sc=0.1)
+
+
+def _torch_w(w):
+    """JAX taps (3, cin, cout) -> Conv3d (cout, cin, 3, 1, 1)."""
+    return np.ascontiguousarray(w.transpose(2, 1, 0)[..., None, None])
+
+
+def test_temporal_conv3_vjp_matches_jax():
+    f32, x, w, b = _conv_data(1)
+    nf = 5
+    gy = f32(10, 8, 24)
+    _, ref = _jax_grads(lambda *a: temporal_conv3(*a, nf), (x, w, b), gy)
+    dx, dw, db = conv3_vjp(torch.from_numpy(x), torch.from_numpy(_torch_w(w)),
+                           torch.from_numpy(gy), nf)
+    assert _rel(dx.numpy(), ref[0]) <= 1e-4
+    assert _rel(dw.numpy()[..., 0, 0].transpose(2, 1, 0), ref[1]) <= 1e-4
+    assert _rel(db.numpy(), ref[2]) <= 1e-4
+
+
+@pytest.mark.parametrize("epilogue", ["emb", "res"])
+def test_gn_silu_conv3_vjp_matches_jax(epilogue):
+    f32, x, w, b = _conv_data(2, cout=16)
+    nf = 5
+    scale, shift, gy = f32(10, 16, sc=0.5), f32(10, 16, sc=0.5), f32(10, 8, 16)
+    if epilogue == "emb":
+        extra = (f32(10, 16),)
+        jfn = lambda x, sc, sh, w, b, e: jax_emb(x, sc, sh, w, b, e, nf)
+        tfn = lambda x, sc, sh, w, b, e: fused_gn_silu_conv3_emb(x, sc, sh, w, b, e, nf)
+    else:
+        extra = (f32(10, 8, 16), np.array(0.3, np.float32))
+        jfn = lambda x, sc, sh, w, b, r, rs: jax_res(x, sc, sh, w, b, r, rs, nf)
+        tfn = lambda x, sc, sh, w, b, r, rs: fused_gn_silu_conv3_res(x, sc, sh, w, b, r, rs, nf)
+    ref_out, ref = _jax_grads(jfn, (x, scale, shift, w, b, *extra), gy)
+    out, got = _port_grads(tfn, (x, scale, shift, _torch_w(w), b, *extra), gy)
+    got[3] = got[3][..., 0, 0].transpose(2, 1, 0)
+    assert _rel(out, ref_out) <= 1e-4
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 1e-4

@@ -11,10 +11,15 @@ on the same bf16 inputs (bf16 operands and outputs, fp32 accumulation).
 import pytest
 import torch
 
-from vista_tpu_torch.ops.attention import attention_packed, attention_plain
+from vista_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plain,
+                                           attention_forward, attention_packed,
+                                           attention_plain)
+from vista_tpu_torch.ops.fused_ff import ff_bwd, ff_bwd_plain
 from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_plain,
                                         ln_linear, ln_linear_plain)
-from vista_tpu_torch.ops.temporal_conv import gn_silu_conv3, gn_silu_conv3_plain
+from vista_tpu_torch.ops.norms import layer_norm_kernel, layer_norm_plain
+from vista_tpu_torch.ops.temporal_conv import (conv3, conv3_plain, gn_silu_conv3,
+                                               gn_silu_conv3_plain)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-2
@@ -88,6 +93,50 @@ def test_gn_silu_conv3(rnd, cout, epilogue):
     ref_kw = {k: v.float() for k, v in kw.items()}
     _check(gn_silu_conv3(x, sc, sh, w, b, t, **kw),
            gn_silu_conv3_plain(*_f32(x, sc, sh, w, b), t, **ref_kw))
+
+
+@pytest.mark.parametrize("shape", [(300, 320), (50, 25, 640), (7, 1280)])
+def test_layer_norm(rnd, shape):
+    c = shape[-1]
+    x = rnd(*shape, std=2.0)
+    lw, lb = 1 + rnd(c, std=0.1, dtype=torch.float32), rnd(c, std=0.1, dtype=torch.float32)
+    _check(layer_norm_kernel(x, lw, lb), layer_norm_plain(*_f32(x, lw, lb)))
+
+
+@pytest.mark.parametrize("b,s_q,s_k,heads,valid_k", [
+    (3, 100, 130, 2, None), (3, 100, 130, 2, 77), (40, 25, 25, 5, None), (2, 300, 300, 1, 257)])
+def test_attention_bwd(rnd, b, s_q, s_k, heads, valid_k):
+    q, k, v = rnd(b, s_q, heads * 64), rnd(b, s_k, heads * 64), rnd(b, s_k, heads * 64)
+    do = rnd(b, s_q, heads * 64)
+    o, lse = attention_forward(q, k, v, heads, valid_k, want_lse=True)
+    ref_o, ref_lse = attention_plain(*_f32(q, k, v), heads, valid_k, want_lse=True)
+    _check(o, ref_o)
+    _check(lse, ref_lse)
+    got = attention_bwd(q, k, v, o, lse, do, heads, valid_k)
+    ref = attention_bwd_plain(*_f32(q, k, v, o, lse, do), heads, valid_k)
+    for g, r in zip(got, ref):
+        _check(g, r)
+
+
+@pytest.mark.parametrize("m,c", [(300, 64), (130, 96)])
+def test_ff_bwd(rnd, m, c):
+    x, dy = rnd(m, c), rnd(m, c)
+    lw, lb = 1 + rnd(c, std=0.1, dtype=torch.float32), rnd(c, std=0.1, dtype=torch.float32)
+    w1, b1 = rnd(8 * c, c, std=c ** -0.5), rnd(8 * c, std=0.1, dtype=torch.float32)
+    w2 = rnd(c, 4 * c, std=(4 * c) ** -0.5)
+    got = ff_bwd(x, lw, lb, w1, b1, w2, dy)
+    ref = ff_bwd_plain(*_f32(x, lw, lb, w1, b1, w2, dy))
+    for g, r in zip(got, ref):
+        _check(g, r)
+
+
+@pytest.mark.parametrize("cout,with_bias", [(96, True), (64, False)])
+def test_conv3(rnd, cout, with_bias):
+    t, bt, s, cin = 5, 10, 45, 64
+    x = rnd(bt, s, cin)
+    w = rnd(cout, cin, 3, 1, 1, std=(3 * cin) ** -0.5)
+    b = rnd(cout, std=0.1, dtype=torch.float32) if with_bias else None
+    _check(conv3(x, w, b, t), conv3_plain(*_f32(x, w, b), t))
 
 
 def test_cuda_tensors_never_take_the_plain_path(rnd):

@@ -1,9 +1,12 @@
 """Checks of the port at the released widths that need no weights.
 
-- The full-width VideoUNet and temporal VAE decoder, built on the ``meta``
-  device, carry exactly the keys the JAX package's key maps name, with the
-  shapes the JAX modules' own parameters imply (``jax.eval_shape`` of their
-  init, mapped through the key map's transforms).
+- The full-width VideoUNet (plain, and with LoRA + action adapters), the
+  temporal VAE decoder, the VAE encoder and the ViT-H CLIP tower, built on
+  the ``meta`` device, carry exactly the keys the JAX package's key maps
+  name, with the shapes the JAX modules' own parameters imply
+  (``jax.eval_shape`` of their init, mapped through the key map's
+  transforms).
+- ``VistaEngine`` runs on the card unless asked for the CPU.
 - The port imports no JAX: checked in a fresh interpreter.
 - The port's config dataclasses have the JAX ones' fields and defaults,
   minus the TPU-only fields.
@@ -21,15 +24,21 @@ import jax
 import jax.numpy as jnp
 
 from vista_tpu.diffusion import guidance as jguidance
+from vista_tpu.diffusion import loss as jloss
 from vista_tpu.diffusion import sampler as jsampler
 from vista_tpu.engine import engine as jengine
+from vista_tpu.engine import training as jtraining
+from vista_tpu.models import clip as jclip
+from vista_tpu.models import conditioner as jconditioner
 from vista_tpu.models import unet as junet
 from vista_tpu.models import vae as jvae
 from vista_tpu.utils import torch_import as ti
-from vista_tpu_torch.diffusion import guidance, sampler
-from vista_tpu_torch.engine import engine
+from vista_tpu_torch.diffusion import guidance, loss, sampler
+from vista_tpu_torch.engine import engine, training
+from vista_tpu_torch.models import conditioner
+from vista_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionTower
 from vista_tpu_torch.models.unet import VideoUNet, VideoUNetConfig
-from vista_tpu_torch.models.vae import VAEConfig, VideoVAEDecoder
+from vista_tpu_torch.models.vae import VAEConfig, VAEEncoder, VideoVAEDecoder
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -62,18 +71,52 @@ def _audit(module, entries, flax_shapes):
     assert {k: got[k] for k in want if got[k] != want[k]} == {}
 
 
-def test_full_width_unet_keys_and_shapes():
-    jcfg = junet.VideoUNetConfig()
+@pytest.mark.parametrize("adapters", [False, True])
+def test_full_width_unet_keys_and_shapes(adapters):
+    """``adapters``: the phase-2 UNet, rank-16 LoRA + action control."""
+    extra = dict(add_lora=adapters, action_control=adapters)
+    jcfg = dataclasses.replace(junet.VideoUNetConfig(), **extra)
     t = jcfg.num_frames
+    ctx = jcfg.context_dim + (2432 if adapters else 0)
     shapes = jax.eval_shape(lambda: junet.VideoUNet(jcfg).init(
         jax.random.key(0), jnp.zeros((t, 8, 8, jcfg.in_channels)), jnp.zeros((t,)),
-        jnp.zeros((1, 1, jcfg.context_dim)), jnp.zeros((1, jcfg.adm_in_channels)),
+        jnp.zeros((1, 1, ctx)), jnp.zeros((1, jcfg.adm_in_channels)),
         jnp.zeros((t,)), t))["params"]
     with torch.device("meta"):
-        unet = VideoUNet(VideoUNetConfig())
+        unet = VideoUNet(dataclasses.replace(VideoUNetConfig(), **extra))
     _audit(unet, ti.unet_key_map(jcfg), _flat(shapes))
-    n = sum(p.numel() for p in unet.parameters())
+    n_adapters = sum(p.numel() for k, p in unet.named_parameters() if "adapter" in k)
+    n = sum(p.numel() for p in unet.parameters()) - n_adapters
     assert 1.45e9 < n < 1.6e9, n
+    assert (n_adapters > 0) == adapters
+
+
+def test_full_width_encoder_and_clip_keys_and_shapes():
+    jcfg = jvae.VAEConfig()
+    shapes = jax.eval_shape(lambda: jvae.VAEEncoder(jcfg).init(
+        jax.random.key(0), jnp.zeros((1, 32, 32, 3))))["params"]
+    with torch.device("meta"):
+        encoder = VAEEncoder(VAEConfig())
+    _audit(encoder, ti.vae_encoder_key_map(jcfg), _flat(shapes))
+    ccfg = jclip.CLIPVisionConfig()
+    shapes = jax.eval_shape(lambda: jclip.CLIPVisionTower(ccfg).init(
+        jax.random.key(0), jnp.zeros((1, ccfg.image_size, ccfg.image_size, 3))))["params"]
+    with torch.device("meta"):
+        tower = CLIPVisionTower(CLIPVisionConfig())
+    _audit(tower, ti.clip_key_map(ccfg), _flat(shapes))
+    n = sum(p.numel() for p in tower.parameters())
+    assert 6.0e8 < n < 6.5e8, n
+
+
+def test_engine_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    import inspect
+
+    assert inspect.signature(engine.VistaEngine).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="card"):
+        engine.VistaEngine(engine.EngineConfig().tiny())
+    cpu = engine.VistaEngine(engine.EngineConfig().tiny(), "cpu")
+    assert next(cpu.unet.parameters()).device.type == "cpu"
 
 
 def test_full_width_decoder_keys_and_shapes():
@@ -110,21 +153,25 @@ def _as_plain(v):
     return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
 
 
+UNET_TPU_ONLY = {"attn_backend", "remat_max_ds", "remat_policy"}
+
+
 @pytest.mark.parametrize("port_cls,jax_cls,tpu_only", [
-    (VideoUNetConfig, junet.VideoUNetConfig,
-     {"attn_backend", "remat", "remat_max_ds", "remat_policy"}),
+    (VideoUNetConfig, junet.VideoUNetConfig, UNET_TPU_ONLY),
     (VAEConfig, jvae.VAEConfig, set()),
-    (engine.EngineConfig, jengine.EngineConfig, {"conditioner"}),
+    (engine.EngineConfig, jengine.EngineConfig, set()),
     (sampler.SamplerConfig, jsampler.SamplerConfig, set()),
     (guidance.GuiderConfig, jguidance.GuiderConfig, set()),
+    (CLIPVisionConfig, jclip.CLIPVisionConfig, set()),
+    (conditioner.ConditionerConfig, jconditioner.ConditionerConfig, set()),
+    (training.TrainConfig, jtraining.TrainConfig, set()),
+    (loss.LossConfig, jloss.LossConfig, set()),
 ])
 def test_config_defaults_match_jax(port_cls, jax_cls, tpu_only):
-    """``conditioner`` is not TPU-only: it is not ported yet."""
     port, ref = _defaults(port_cls), _defaults(jax_cls)
     assert set(port) == set(ref) - tpu_only
     for name in port:
         p, r = _as_plain(port[name]), _as_plain(ref[name])
-        if name in ("unet", "vae"):
-            r = {k: v for k, v in r.items()
-                 if k not in {"attn_backend", "remat", "remat_max_ds", "remat_policy"}}
+        if name == "unet":
+            r = {k: v for k, v in r.items() if k not in UNET_TPU_ONLY}
         assert p == r, name

@@ -58,7 +58,7 @@ def engines():
     state.update(ti.export_key_map(params["decoder"],
                                    ti.vae_decoder_key_map(jcfg.vae, video=True),
                                    DECODER_PREFIX))
-    port = VistaEngine(_fp32(EngineConfig().tiny()))
+    port = VistaEngine(_fp32(EngineConfig().tiny()), "cpu")
     load_vista_state_dict(port.unet, port.decoder, state)
     return jeng, params, port
 

@@ -76,7 +76,7 @@ def weights():
             jnp.zeros((B, cfg.unet.adm_in_channels)), jnp.zeros((n,)), T))["params"]
     unet_params = random_params(shapes, 1)
     state = ti.export_key_map(unet_params, ti.unet_key_map(cfg.unet), UNET_PREFIX)
-    port = VistaEngine(_port_cfg())
+    port = VistaEngine(_port_cfg(), "cpu")
     load_vista_state_dict(port.unet, None, state)
     return unet_params, port
 

@@ -19,6 +19,12 @@
 // exp2 work per score competes with the tensor cores (FlashAttention-2's
 // regime); nothing of size S^2 reaches device memory. For t = 25 the block
 // is mostly padding; that workload is small next to the spatial one.
+//
+// With a non-null ``lse`` (the training forward, the JAX want_lse path) it
+// also writes the natural-log log-sum-exp of every query row's scaled
+// scores, fp32 (B, H, Sq), the residual of csrc/attention_bwd.cu. That is a
+// template instance of its own, so the inference kernel compiles exactly as
+// it did before the output existed.
 #include "common.cuh"
 
 namespace vk {
@@ -26,10 +32,12 @@ namespace vk {
 constexpr int AQ = 64, AK = 64, AD = 64;
 constexpr int AS = AD + 8;  // padded smem row stride (bf16)
 
+template <bool LSE>
 __global__ void __launch_bounds__(128)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-                 int Sk, int H, int kv_len, float scale_log2) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int kv_len,
+                 float scale_log2) {
   __shared__ __align__(16) bf16 Qs[AQ * AS];
   __shared__ __align__(16) bf16 Ks[AK * AS];
   __shared__ __align__(16) bf16 Vs[AK * AS];
@@ -160,6 +168,10 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
     l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+    const int qi = q0 + warp * 16 + g + r * 8;
+    if (LSE && t == 0 && qi < Sq)
+      lse[((size_t)b * H + h) * Sq + qi] =
+          m_i[r] * 0.6931471805599453f + logf(l_i[r]);
     l_i[r] = 1.f / l_i[r];
   }
 #pragma unroll
@@ -177,13 +189,15 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }  // namespace vk
 
 // q (B, Sq, H*64), k and v (B, Sk, H*64), out like q; bf16, contiguous.
-// kv_len = number of keys attended (<= Sk). scale_log2 = scale * log2(e).
+// lse: fp32 (B, H, Sq) or null. kv_len = number of keys attended (<= Sk).
+// scale_log2 = scale * log2(e).
 extern "C" int vk_attention(const void* q, const void* k, const void* v,
-                            void* out, int B, int Sq, int Sk, int H,
+                            void* out, void* lse, int B, int Sq, int Sk, int H,
                             int kv_len, float scale_log2, void* stream) {
   dim3 grid(B * ((Sq + vk::AQ - 1) / vk::AQ), H);
-  vk::attention_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+  auto kernel = lse ? vk::attention_kernel<true> : vk::attention_kernel<false>;
+  kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
       (const vk::bf16*)q, (const vk::bf16*)k, (const vk::bf16*)v,
-      (vk::bf16*)out, Sq, Sk, H, kv_len, scale_log2);
+      (vk::bf16*)out, (float*)lse, Sq, Sk, H, kv_len, scale_log2);
   return (int)cudaGetLastError();
 }

@@ -17,10 +17,18 @@
 // padded x with a zero frame at each edge instead). On the H100 this is a
 // tensor-core-bound GEMM (6 * M * cin * cout flops against ~3 reads of x,
 // mostly from L2); the normalised input never reaches device memory.
+//
+// conv3 (the entry vk_conv3): the same kernel without the GroupNorm + SiLU
+// prologue, and with an optional bias and no epilogue: the plain 3-tap
+// frame conv, replacing vista_tpu/ops/temporal_conv.py _conv3_kernel
+// (temporal_conv3). It runs the backward of K4: dx is this conv of the
+// cotangent with flipped, transposed taps, and the ``res`` epilogue's
+// res_scale gradient needs y recomputed. Its own launch and counter.
 #include "common.cuh"
 
 namespace vk {
 
+template <bool PROLOGUE>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gn_silu_conv3_kernel(const bf16* __restrict__ x,
                      const float* __restrict__ scale,
@@ -45,9 +53,11 @@ gn_silu_conv3_kernel(const bf16* __restrict__ x,
     if (src_t < 0 || src_t >= T) return make_uint4(0, 0, 0, 0);
     const int fs = f + tap - 1;
     const int p = m - f * S;
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(x + ((size_t)fs * S + p) * K + k);
+    if (!PROLOGUE) return raw;
     float v[8];
-    unpack8(*reinterpret_cast<const uint4*>(x + ((size_t)fs * S + p) * K + k),
-            v);
+    unpack8(raw, v);
     const float* sc = scale + (size_t)fs * K + k;
     const float* sh = shift + (size_t)fs * K + k;
 #pragma unroll
@@ -78,8 +88,8 @@ gn_silu_conv3_kernel(const bf16* __restrict__ x,
       for (int j = 0; j < 4; ++j) {
         const int n = n0 + wn * 32 + j * 8 + t * 2;
         if (n >= N) continue;
-        float v0 = acc[i][j][half * 2] + bias[n];
-        float v1 = acc[i][j][half * 2 + 1] + bias[n + 1];
+        float v0 = acc[i][j][half * 2] + (bias ? bias[n] : 0.f);
+        float v1 = acc[i][j][half * 2 + 1] + (bias ? bias[n + 1] : 0.f);
         if (emb) {
           v0 += emb[(size_t)f * N + n];
           v1 += emb[(size_t)f * N + n + 1];
@@ -109,11 +119,25 @@ extern "C" int vk_gn_silu_conv3(const void* x, const void* scale,
                                 void* out, int M, int S, int T, int K, int N,
                                 void* stream) {
   dim3 grid((M + vk::BM - 1) / vk::BM, (N + vk::BN - 1) / vk::BN);
-  vk::gn_silu_conv3_kernel<<<grid, vk::GEMM_THREADS, 0,
+  vk::gn_silu_conv3_kernel<true><<<grid, vk::GEMM_THREADS, 0,
                              (cudaStream_t)stream>>>(
       (const vk::bf16*)x, (const float*)scale, (const float*)shift,
       (const vk::bf16*)w, (const float*)bias, (const float*)emb,
       (const vk::bf16*)res, (const float*)res_scale, (vk::bf16*)out, M, S, T,
+      K, N);
+  return (int)cudaGetLastError();
+}
+
+// x (b*t*s, cin) bf16; w (cout, 3, cin) bf16; bias (cout) fp32 or null;
+// out (b*t*s, cout) bf16. cin % 32 == 0, cout even.
+extern "C" int vk_conv3(const void* x, const void* w, const void* bias,
+                        void* out, int M, int S, int T, int K, int N,
+                        void* stream) {
+  dim3 grid((M + vk::BM - 1) / vk::BM, (N + vk::BN - 1) / vk::BN);
+  vk::gn_silu_conv3_kernel<false><<<grid, vk::GEMM_THREADS, 0,
+                                    (cudaStream_t)stream>>>(
+      (const vk::bf16*)x, nullptr, nullptr, (const vk::bf16*)w,
+      (const float*)bias, nullptr, nullptr, nullptr, (vk::bf16*)out, M, S, T,
       K, N);
   return (int)cudaGetLastError();
 }

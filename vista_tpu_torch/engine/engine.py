@@ -1,35 +1,45 @@
 """The diffusion engine: networks + diffusion math (counterpart of
-``vista_tpu/engine/engine.py``, its sampling and first-stage decode).
+``vista_tpu/engine/engine.py``).
 
-Holds the VideoUNet and the temporal VAE decoder as modules; latents are
-``(n, z, h, w)`` (NCHW, frame-major). ``decode_first_stage`` decodes windows
-of ``decode_chunk`` frames sharing ``decode_overlap`` frames and averages
-the seams, one window after the other. The conditioner (CLIP image
-embedding, VAE encoder) is not ported yet: callers pass the ``crossattn``,
-``vector`` and ``concat`` conditioning tensors themselves.
+Holds the VideoUNet, the temporal VAE decoder, the VAE encoder and the
+conditioner (CLIP tower + ``quant_conv``; it shares the encoder, as the JAX
+package ties the two). Latents are ``(n, z, h, w)`` (NCHW, frame-major).
+
+- ``encode_first_stage``: pixels -> scaled latents, in chunks of
+  ``encode_chunk`` frames, sampling the posterior with given noise or taking
+  its mode;
+- ``conditions``: the conditioner on a typed batch;
+- ``decode_first_stage``: windows of ``decode_chunk`` frames sharing
+  ``decode_overlap`` frames, the seams averaged, one window after the other;
+- ``sample``: one sampling pass (Euler-EDM).
+
+The engine runs on the card unless the caller asks for the CPU: building it
+on ``"cuda"`` without one raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, FrozenSet, Mapping, Optional
 
 import torch
 
 from vista_tpu_torch.diffusion.denoiser import precondition_denoise
 from vista_tpu_torch.diffusion.sampler import SamplerConfig, sample_euler_edm
 from vista_tpu_torch.diffusion.scaling import get_scaling
+from vista_tpu_torch.models.conditioner import ConditionerConfig, GeneralConditioner
 from vista_tpu_torch.models.unet import VideoUNet, VideoUNetConfig
-from vista_tpu_torch.models.vae import VAEConfig, VideoVAEDecoder
+from vista_tpu_torch.models.vae import (VAEConfig, VAEEncoder, VideoVAEDecoder,
+                                        gaussian_mode, gaussian_sample)
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """The JAX config's fields and defaults, without ``conditioner`` (not
-    ported yet)."""
+    """The JAX config's fields and defaults."""
 
     unet: VideoUNetConfig = dataclasses.field(default_factory=VideoUNetConfig)
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
+    conditioner: ConditionerConfig = dataclasses.field(default_factory=ConditionerConfig)
     scaling: str = "v_edm_cnoise"
     num_frames: int = 25
     decode_chunk: int = 14
@@ -38,22 +48,57 @@ class EngineConfig:
 
     def tiny(self) -> "EngineConfig":
         unet = self.unet.tiny()
+        cond = self.conditioner.tiny()
+        cond = dataclasses.replace(
+            cond, vector_outdim=unet.adm_in_channels // 3,
+            clip=dataclasses.replace(cond.clip, output_dim=unet.context_dim))
         return dataclasses.replace(
-            self, unet=unet, vae=self.vae.tiny(), num_frames=unet.num_frames,
-            decode_chunk=3, decode_overlap=1, encode_chunk=4)
+            self, unet=unet, vae=self.vae.tiny(), conditioner=cond,
+            num_frames=unet.num_frames, decode_chunk=3, decode_overlap=1, encode_chunk=4)
 
 
 class VistaEngine:
-    """Modules are built on ``device`` in the configs' dtypes. Weights come
-    from :func:`vista_tpu_torch.utils.checkpoint.load_vista_state_dict`."""
+    """Modules are built on ``device`` (the card unless the caller passes
+    ``"cpu"``) in the configs' dtypes, the conditioner's ``quant_conv`` in
+    fp32. Weights come from
+    :func:`vista_tpu_torch.utils.checkpoint.load_vista_state_dict`."""
 
-    def __init__(self, cfg: EngineConfig, device="cpu"):
+    def __init__(self, cfg: EngineConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("VistaEngine runs on the card and found none; "
+                               "pass device='cpu' to build it on the CPU")
         with self.device:
             self.unet = VideoUNet(cfg.unet).to(cfg.unet.compute_dtype).eval()
             self.decoder = VideoVAEDecoder(cfg.vae).to(cfg.vae.compute_dtype).eval()
+            self.encoder = VAEEncoder(cfg.vae).to(cfg.vae.compute_dtype).eval()
+            self.conditioner = GeneralConditioner(cfg.conditioner).eval()
+            self.conditioner.clip_tower.to(cfg.conditioner.clip.compute_dtype)
+        for module in (self.decoder, self.encoder, self.conditioner):
+            module.requires_grad_(False)
         self.scaling = get_scaling(cfg.scaling)
+
+    @torch.no_grad()
+    def encode_first_stage(self, pixels: torch.Tensor,
+                           noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Pixels ``(n, 3, H, W)`` in [-1, 1] -> scaled latents ``(n, z, h, w)``:
+        the posterior sampled with the standard-normal ``noise`` when given,
+        else its mode. Chunks of ``encode_chunk`` frames bound the encoder's
+        activations."""
+        chunk = self.cfg.encode_chunk
+        moments = torch.cat([self.encoder(pixels[i:i + chunk])
+                             for i in range(0, pixels.shape[0], chunk)])
+        z = gaussian_sample(moments, noise) if noise is not None else gaussian_mode(moments)
+        return z * self.cfg.vae.scale_factor
+
+    @torch.no_grad()
+    def conditions(self, batch: Mapping[str, torch.Tensor],
+                   force_zero: FrozenSet[str] = frozenset(), skip_encode: bool = False,
+                   ucg_keep: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """``{"crossattn", "vector", "concat"}`` for a typed batch (see
+        :class:`GeneralConditioner`)."""
+        return self.conditioner(batch, self.encoder, force_zero, skip_encode, ucg_keep)
 
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:

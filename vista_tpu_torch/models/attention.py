@@ -16,6 +16,16 @@ checkpoint load with ``strict=True``.
   ported.
 - Temporal block: rows ``(b*s, t, c)``, one per spatial location, t = 25
   frames unpadded.
+
+With LoRA (``add_lora``, rank-16 ``up(down(x)) * scale`` adapters beside
+q/k/v/out, ``up`` zero-initialised) the self-attentions leave K2 as the JAX
+package does (``pre_ln_self_attention`` and ``_TemporalCore``): the
+layer_norm kernel, q/k/v products plus their adapters (plain matmuls, XLA
+in JAX), K1, then ``to_out`` plus its adapter plus the residual. With
+action control the cross-attention context carries 19 * 128 action
+features past ``context_dim``, added to v through ``v_adapter_action``
+(zero-initialised); the k adapters are dead in the one-token fast path but
+exist, as in the checkpoint. Every path is differentiable under LoRA.
 """
 
 from __future__ import annotations
@@ -32,37 +42,91 @@ from vista_tpu_torch.ops.fused_ff import fused_geglu_ff
 from vista_tpu_torch.ops.fused_qkv import fused_ln_qkv
 from vista_tpu_torch.ops.fused_temporal_attn import fused_temporal_self_attn
 from vista_tpu_torch.ops.linear import linear_residual
+from vista_tpu_torch.ops.norms import layer_norm
 
 LONG_SEQ = 2048  # launch-count label only: "spatial-long" at s >= this
+ACTION_CONTEXT_DIM = 128 * 19  # five action modalities of 128-d sinusoidal embeds
+
+
+LORA_RANK, LORA_SCALE = 16, 1.0  # the JAX CrossAttention defaults, the shipped ones
+
+
+def _add_lora(owner: nn.Module, name: str, in_dim: int, out_dim: int) -> None:
+    """The adapter ``up(down(x)) * LORA_SCALE`` as the two Linears the
+    checkpoint names ``{name}_down`` (normal, std 1 / rank) and ``{name}_up``
+    (zero) on the owning attention."""
+    down = nn.Linear(in_dim, LORA_RANK, bias=False)
+    up = nn.Linear(LORA_RANK, out_dim, bias=False)
+    with torch.no_grad():
+        nn.init.normal_(down.weight, std=1.0 / LORA_RANK)
+        nn.init.zeros_(up.weight)
+    setattr(owner, f"{name}_down", down)
+    setattr(owner, f"{name}_up", up)
 
 
 class CrossAttention(nn.Module):
     def __init__(self, query_dim: int, heads: int, dim_head: int,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, add_lora: bool = False,
+                 action_control: bool = False):
         super().__init__()
         inner = heads * dim_head
+        ctx_dim = context_dim or query_dim
         self.heads = heads
+        self.add_lora = add_lora
+        self.action_control = action_control
+        self.context_dim = context_dim
         self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.to_k = nn.Linear(ctx_dim, inner, bias=False)
+        self.to_v = nn.Linear(ctx_dim, inner, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Dropout(0.0))
+        if add_lora:
+            for name, i, o in (("q_adapter", query_dim, inner), ("k_adapter", ctx_dim, inner),
+                               ("v_adapter", ctx_dim, inner), ("out_adapter", inner, query_dim)):
+                _add_lora(self, name, i, o)
+        if action_control:
+            self.k_adapter_action_control = nn.Linear(ACTION_CONTEXT_DIM, inner, bias=False)
+            self.v_adapter_action_control = nn.Linear(ACTION_CONTEXT_DIM, inner, bias=False)
+            with torch.no_grad():
+                nn.init.zeros_(self.k_adapter_action_control.weight)
+                nn.init.zeros_(self.v_adapter_action_control.weight)
 
-    def self_attention(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    def _lora(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        up = getattr(self, f"{name}_up")
+        return up(getattr(self, f"{name}_down")(x)) * LORA_SCALE
+
+    def _proj(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        y = getattr(self, f"to_{name}")(x)
+        return y + self._lora(f"{name}_adapter", x) if self.add_lora else y
+
+    def self_attention(self, x: torch.Tensor, norm: nn.LayerNorm,
+                       site: Optional[str] = None) -> torch.Tensor:
         """``x + to_out(attn(to_qkv(norm(x))))`` on ``(n, s, c)``."""
+        site = site or ("spatial-long" if x.shape[1] >= LONG_SEQ else "spatial-short")
+        if self.add_lora:
+            xn = layer_norm(x, norm.weight, norm.bias, norm.eps, site=site)
+            q, k, v = (self._proj(p, xn) for p in ("q", "k", "v"))
+            o = attention_packed(q, k, v, self.heads, site=site)
+            return x + self.to_out(o) + self._lora("out_adapter", o)
         q, k, v = fused_ln_qkv(x, norm.weight, norm.bias, self.to_q.weight,
                                self.to_k.weight, self.to_v.weight, norm.eps)
-        site = "spatial-long" if x.shape[1] >= LONG_SEQ else "spatial-short"
         o = attention_packed(q, k, v, self.heads, site=site)
         out = self.to_out[0]
         return linear_residual(o, out.weight, out.bias.float(), x, site="attn-out")
 
     def cross(self, context: torch.Tensor) -> torch.Tensor:
         """The cross-attention term for a one-token context: softmax over one
-        key is 1, so every query gets ``to_out(to_v(ctx))``. Returns
+        key is 1, so every query gets ``to_out(v(ctx))``. Returns
         ``(context rows, 1, c)``, to be broadcast by the caller."""
         if context is None or context.shape[1] != 1:
             raise NotImplementedError("only one-token contexts (Vista's) are ported")
-        return self.to_out(self.to_v(context))
+        ctx = context
+        if self.action_control:
+            ctx, ctx_action = context[..., :self.context_dim], context[..., self.context_dim:]
+        v = self._proj("v", ctx)
+        if self.action_control:
+            v = v + self.v_adapter_action_control(ctx_action)
+        y = self.to_out(v)
+        return y + self._lora("out_adapter", v) if self.add_lora else y
 
 
 class GEGLU(nn.Module):
@@ -89,11 +153,13 @@ class FeedForward(nn.Module):
 class TransformerBlock(nn.Module):
     """Spatial block: pre-LN self-attn -> cross-attn(context) -> GEGLU FF."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int]):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int],
+                 add_lora: bool = False, action_control: bool = False):
         super().__init__()
-        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.attn1 = CrossAttention(dim, heads, dim_head, add_lora=add_lora)
         self.ff = FeedForward(dim)
-        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim, add_lora=add_lora,
+                                    action_control=action_control)
         self.norm1, self.norm2, self.norm3 = (nn.LayerNorm(dim) for _ in range(3))
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
@@ -107,13 +173,15 @@ class TemporalTransformerBlock(nn.Module):
     ``ff_in`` and the spatial context): ``(b*t, s, c)`` is viewed as
     ``(b*s, t, c)`` so that every location attends over its frames."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int]):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int],
+                 add_lora: bool = False, action_control: bool = False):
         super().__init__()
         self.heads = heads
         self.norm_in = nn.LayerNorm(dim)
         self.ff_in = FeedForward(dim)
-        self.attn1 = CrossAttention(dim, heads, dim_head)
-        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim)
+        self.attn1 = CrossAttention(dim, heads, dim_head, add_lora=add_lora)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim, add_lora=add_lora,
+                                    action_control=action_control)
         self.norm1, self.norm2, self.norm3 = (nn.LayerNorm(dim) for _ in range(3))
         self.ff = FeedForward(dim)
 
@@ -124,10 +192,13 @@ class TemporalTransformerBlock(nn.Module):
         x = x.reshape(b, num_frames, s, c).transpose(1, 2).reshape(b * s, num_frames, c)
         x = self.ff_in.residual(x, self.norm_in)
         a = self.attn1
-        x = fused_temporal_self_attn(
-            x, self.norm1.weight, self.norm1.bias, a.to_q.weight, a.to_k.weight,
-            a.to_v.weight, a.to_out[0].weight, a.to_out[0].bias, self.heads,
-            self.norm1.eps)
+        if a.add_lora:
+            x = a.self_attention(x, self.norm1, site="temporal")
+        else:
+            x = fused_temporal_self_attn(
+                x, self.norm1.weight, self.norm1.bias, a.to_q.weight, a.to_k.weight,
+                a.to_v.weight, a.to_out[0].weight, a.to_out[0].bias, self.heads,
+                self.norm1.eps)
         y = self.attn2.cross(time_context).reshape(b, 1, 1, c)  # per video
         x = (x.reshape(b, s, num_frames, c) + y).reshape(b * s, num_frames, c)
         x = self.ff.residual(x, self.norm3)
@@ -142,17 +213,20 @@ class SpatialVideoTransformer(nn.Module):
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, merge_factor: float = 0.5,
                  merge_strategy: str = "learned_with_images",
-                 max_time_embed_period: int = 10000):
+                 max_time_embed_period: int = 10000, add_lora: bool = False,
+                 action_control: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.channels = channels
         self.max_time_embed_period = max_time_embed_period
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, inner)
+        adapters = dict(add_lora=add_lora, action_control=action_control)
         self.transformer_blocks = nn.ModuleList(
-            TransformerBlock(inner, heads, dim_head, context_dim) for _ in range(depth))
+            TransformerBlock(inner, heads, dim_head, context_dim, **adapters)
+            for _ in range(depth))
         self.time_stack = nn.ModuleList(
-            TemporalTransformerBlock(inner, heads, dim_head, context_dim)
+            TemporalTransformerBlock(inner, heads, dim_head, context_dim, **adapters)
             for _ in range(depth))
         self.time_pos_embed = nn.Sequential(
             nn.Linear(channels, channels * 4), nn.SiLU(), nn.Linear(channels * 4, inner))

@@ -9,6 +9,14 @@ views. Module and parameter names follow the upstream torch checkpoint
 
 The two time-embedding MLPs are blended per frame by the conditional-frame
 mask, so the pinned context frames get their own embedding.
+
+``add_lora`` / ``action_control`` add the rank-16 LoRA adapters and the
+action K/V adapters of every attention (``models/attention.py``); the
+cross-attention context is then ``context_dim + 19 * 128`` wide. ``remat``
+wraps every top-level block (VideoResBlock, SpatialVideoTransformer) in
+``torch.utils.checkpoint`` when gradients are recorded: the backward
+recomputes each block's forward instead of storing its activations, as the
+JAX package's ``nn.remat`` does.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from vista_tpu_torch.models.attention import SpatialVideoTransformer
 from vista_tpu_torch.models.blocks import Downsample, Upsample, VideoResBlock
@@ -27,7 +36,7 @@ from vista_tpu_torch.models.layers import GroupNorm32, timestep_embedding, times
 @dataclasses.dataclass(frozen=True)
 class VideoUNetConfig:
     """The JAX config's fields and defaults, without its TPU-only ones
-    (``attn_backend``, ``remat*``)."""
+    (``attn_backend``, ``remat_max_ds``, ``remat_policy``)."""
 
     in_channels: int = 8
     out_channels: int = 4
@@ -46,6 +55,7 @@ class VideoUNetConfig:
     action_control: bool = False
     num_frames: int = 25
     dtype: str = "bfloat16"
+    remat: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -63,14 +73,12 @@ class VideoUNet(nn.Module):
     """Call ``unet(x, t, context, y, cond_mask, num_frames)``:
 
     x ``(b*t, in_channels, h, w)``; t ``(b*t,)`` noise conditioning;
-    context ``(b or b*t, 1, context_dim)``; y ``(b or b*t, adm_in_channels)``;
+    context ``(b or b*t, 1, context_dim [+ 2432 with action_control])``; y ``(b or b*t, adm_in_channels)``;
     cond_mask ``(b*t,)`` 0/1 or None. Returns fp32 ``(b*t, out_channels, h, w)``.
     """
 
     def __init__(self, cfg: VideoUNetConfig):
         super().__init__()
-        if cfg.add_lora or cfg.action_control:
-            raise NotImplementedError("LoRA and action control are not ported yet")
         if tuple(cfg.video_kernel) != (3, 1, 1):
             raise NotImplementedError("only the (3, 1, 1) temporal kernel is ported")
         self.cfg = cfg
@@ -87,7 +95,8 @@ class VideoUNet(nn.Module):
             return SpatialVideoTransformer(
                 ch, ch // cfg.num_head_channels, cfg.num_head_channels,
                 cfg.transformer_depth, cfg.context_dim, cfg.merge_factor,
-                cfg.merge_strategy)
+                cfg.merge_strategy, add_lora=cfg.add_lora,
+                action_control=cfg.action_control)
 
         self.input_blocks = nn.ModuleList(
             [nn.ModuleList([nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)])])
@@ -122,13 +131,15 @@ class VideoUNet(nn.Module):
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
                                  nn.Conv2d(ch0, cfg.out_channels, 3, padding=1))
 
-    @staticmethod
-    def _run(layers, h, emb, context, num_frames):
+    def _run(self, layers, h, emb, context, num_frames):
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in layers:
-            if isinstance(layer, VideoResBlock):
-                h = layer(h, emb, num_frames)
-            elif isinstance(layer, SpatialVideoTransformer):
-                h = layer(h, context, num_frames)
+            if isinstance(layer, (VideoResBlock, SpatialVideoTransformer)):
+                extra = emb if isinstance(layer, VideoResBlock) else context
+                if remat:
+                    h = checkpoint(layer, h, extra, num_frames, use_reentrant=False)
+                else:
+                    h = layer(h, extra, num_frames)
             else:
                 h = layer(h)
         return h

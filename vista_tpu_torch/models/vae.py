@@ -1,5 +1,10 @@
-"""Vista's temporal VAE decoder (counterpart of the decoder half of
-``vista_tpu/models/vae.py``).
+"""Vista's VAE: the image encoder, the diagonal-Gaussian helpers and the
+temporal decoder (counterpart of ``vista_tpu/models/vae.py``).
+
+The encoder maps pixels ``(n, 3, H, W)`` to fp32 Gaussian moments
+``(n, 2z, H/8, W/8)``; it is frozen, and per-frame, so callers chunk it over
+frames. Its mid-block attention is the decoder's: plain, one frame at a
+time (the (h*w)^2 scores of one frame are the largest transient).
 
 Latents ``(b*t, z, h, w)`` frame-major -> pixels ``(b*t, 3, 8h, 8w)``. Every
 ResnetBlock carries a ``(3, 1, 1)`` temporal conv branch blended with a
@@ -137,6 +142,17 @@ class VAEAttnBlock(nn.Module):
         return x + self.proj_out(out)
 
 
+class VAEDownsample(nn.Module):
+    """Stride-2 3x3 conv with (right, bottom) padding of one."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
 class VAEUpsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
@@ -207,3 +223,61 @@ class VideoVAEDecoder(nn.Module):
                 h = self.up[level].upsample(h)
         h = F.silu(self.norm_out(h))
         return self.conv_out(h, num_frames).float()
+
+
+class VAEEncoder(nn.Module):
+    """``encoder(x)``: pixels ``(n, 3, H, W)`` -> fp32 moments ``(n, 2z, h, w)``
+    (upstream keys ``conv_in``, ``down.{l}.block.{i}``, ``down.{l}.downsample``,
+    ``mid.{block_1,attn_1,block_2}``, ``norm_out``, ``conv_out``)."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        if cfg.attn_type not in ("vanilla", "vanilla-xformers"):
+            raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not ported yet")
+        self.cfg = cfg
+        self.conv_in = nn.Conv2d(cfg.in_channels, cfg.ch, 3, padding=1)
+        levels, in_ch = [], cfg.ch
+        for level, mult in enumerate(cfg.ch_mult):
+            down = _Level()
+            down.block = nn.ModuleList()
+            for _ in range(cfg.num_res_blocks):
+                down.block.append(VAEResnetBlock(in_ch, cfg.ch * mult))
+                in_ch = cfg.ch * mult
+            if level != len(cfg.ch_mult) - 1:
+                down.downsample = VAEDownsample(in_ch)
+            levels.append(down)
+        self.down = nn.ModuleList(levels)
+        self.mid = _Level()
+        self.mid.block_1 = VAEResnetBlock(in_ch, in_ch)
+        self.mid.attn_1 = VAEAttnBlock(in_ch)
+        self.mid.block_2 = VAEResnetBlock(in_ch, in_ch)
+        self.norm_out = GroupNorm32(in_ch, eps=1e-6)
+        out_ch = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+        self.conv_out = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(x.to(self.cfg.compute_dtype).contiguous(
+            memory_format=torch.channels_last))
+        for level in self.down:
+            for block in level.block:
+                h = block(h)
+            if hasattr(level, "downsample"):
+                h = level.downsample(h)
+        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
+        return self.conv_out(F.silu(self.norm_out(h))).float()
+
+
+def gaussian_split(moments: torch.Tensor):
+    """``(n, 2z, h, w)`` -> mean, log-variance clipped to [-30, 20]."""
+    mean, logvar = moments.chunk(2, dim=1)
+    return mean, logvar.clamp(-30.0, 20.0)
+
+
+def gaussian_sample(moments: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """A posterior sample with the standard-normal ``noise`` of mean's shape."""
+    mean, logvar = gaussian_split(moments)
+    return mean + torch.exp(0.5 * logvar) * noise
+
+
+def gaussian_mode(moments: torch.Tensor) -> torch.Tensor:
+    return gaussian_split(moments)[0]

@@ -2,8 +2,9 @@
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, at first use, under ``build/`` at the
-root of the checkout; the file name carries a hash of the sources, so an
-edited source is rebuilt and an unchanged one is not. The library is
+root of the checkout: one ``nvcc -c`` per source, all started together,
+then one link. The file name carries a hash of the sources, so an edited
+source is rebuilt and an unchanged one is not. The library is
 loaded with ``ctypes``: pointers and the stream travel as ``c_void_p``, and
 every C entry returns ``cudaGetLastError()`` of its launch.
 
@@ -31,15 +32,24 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 # kernel name -> launches; "kernel/site" -> launches
 LAUNCHES: collections.Counter = collections.Counter()
 SITES: collections.Counter = collections.Counter()
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
-    "vk_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "vk_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "vk_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P],
+    "vk_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
+    "vk_conv3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vk_ff_bwd_dh": [_P] * 7 + [_I, _I, _I, _P],
+    "vk_gemm_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "vk_ln_bwd": [_P] * 7 + [_I, _I, _I, _F, _P],
+    "vk_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vk_col_sum": [_P, _P, _I, _I, _I, _I, _P],
+    "vk_sum_splits": [_P, _P, _I, _L, _P],
     "vk_ln_linear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "vk_linear_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vk_gn_silu_conv3": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -89,22 +99,35 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists."""
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` per source in parallel, then one link."""
     global build_log
     so = library_path()
     if so.exists():
         return so
     BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    work = Path(tempfile.mkdtemp(dir=BUILD))
+    nvcc = _nvcc()
+    objs = [work / (src.stem + ".o") for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [f"== {src.name}\n{proc.communicate()[0]}" for src, proc in zip(_sources(), procs)]
+    failed = [src.name for src, proc in zip(_sources(), procs) if proc.returncode != 0]
+    if not failed:
+        tmp = work / "lib.so"
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append("link")
+    build_log = "\n".join(logs)
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
     os.replace(tmp, so)
     so.with_suffix(".log").write_text(build_log)
+    shutil.rmtree(work, ignore_errors=True)
     return so
 
 

@@ -15,6 +15,11 @@ Weights are in ``torch.nn.Linear`` layout ``(out, in)``. Activations keep
 the JAX package's row layout ``(tokens..., c)``. On CUDA tensors each
 wrapper launches its kernel (bf16 activations and weights, fp32 norm
 parameters and bias) or raises; on CPU tensors it runs its plain version.
+
+Neither has a backward of its own: inside the differentiable feed-forward
+(``ops/fused_ff.py``) the gradient is ``csrc/ff_bwd.cu``; elsewhere (the
+fused q/k/v of the LoRA-free self-attention, the phase-1 path) a call that
+would need one raises.
 """
 
 from __future__ import annotations
@@ -24,19 +29,16 @@ from typing import Optional
 import torch
 
 from vista_tpu_torch.ops import _build
+from vista_tpu_torch.ops.norms import layer_norm_plain
 
 _TILE_K = 32  # the kernels' K step
 
 
-def layer_norm_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
-                     eps: float = 1e-5) -> torch.Tensor:
-    """LN with fp32 statistics ``var = E[x^2] - E[x]^2`` (the JAX kernels'
-    form), returned in x's dtype."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-    xn = (xf - mean) * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()
-    return xn.to(x.dtype)
+def _no_grad_needed(*tensors) -> None:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "K2/K3 have no backward outside the feed-forward: the LoRA-free "
+            "(phase-1) training path is not ported")
 
 
 def gelu_erf(g: torch.Tensor) -> torch.Tensor:
@@ -63,6 +65,7 @@ def ln_linear(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     ``"geglu"``: returns ``(*x.shape[:-1], n // 2)``, where ``n = w.shape[0]``."""
     if epilogue not in ("split", "geglu"):
         raise ValueError(f"unknown epilogue {epilogue!r}")
+    _no_grad_needed(x, ln_w, ln_b, w, bias)
     if _build.on_cpu(x, w):
         return ln_linear_plain(x, ln_w, ln_b, w, bias, epilogue, splits, eps)
     lead, k = x.shape[:-1], x.shape[-1]
@@ -103,6 +106,7 @@ def linear_residual_plain(a, w, bias, residual):
 def linear_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                     residual: torch.Tensor, site: str = "ff") -> torch.Tensor:
     """``residual + a @ w^T + bias``; a ``(..., k)``, residual ``(..., n)``."""
+    _no_grad_needed(a, w, bias, residual)
     if _build.on_cpu(a, w, residual):
         return linear_residual_plain(a, w, bias, residual)
     k = a.shape[-1]

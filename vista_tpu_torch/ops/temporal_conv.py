@@ -14,6 +14,16 @@ consecutive frames.
   that fall outside a video contribute nothing (the SAME zero padding).
 
 The conv weight is in ``torch.nn.Conv3d`` layout ``(cout, cin, 3, 1, 1)``.
+
+Backward (training), the JAX package's VJPs (``_emb_vjp_bwd``,
+``_res_vjp_bwd`` and ``temporal_conv3``'s ``_vjp_bwd``): the affine + SiLU
+is recomputed in plain PyTorch (XLA in JAX); the gradient of the conv input
+is :func:`conv3` of the cotangent with flipped, transposed taps, on the
+hand-written kernel ``vk_conv3`` (``csrc/gn_silu_conv3.cu`` without its
+prologue, replacing ``_conv3_kernel``); the ``res`` epilogue's
+``res_scale`` gradient recomputes y through the same kernel. dW is three
+shifted contractions over all tokens (``torch.matmul``, XLA matmuls in
+JAX); db and demb are row sums.
 """
 
 from __future__ import annotations
@@ -103,15 +113,155 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     return out
 
 
+def conv3_plain(x, w, bias, num_frames):
+    """``y[f] = sum_tap x[f + tap - 1] . W[tap] (+ bias)``, zero outside a
+    video; fp32 math, x's dtype out."""
+    bt, s, cin = x.shape
+    cout = w.shape[0]
+    xv = x.float().reshape(bt // num_frames, num_frames, s, cin)
+    w3 = w.float().reshape(cout, cin, 3)
+    y = torch.matmul(xv, w3[:, :, 1].t())
+    y[:, 1:] += torch.matmul(xv[:, :-1], w3[:, :, 0].t())
+    y[:, :-1] += torch.matmul(xv[:, 1:], w3[:, :, 2].t())
+    y = y.reshape(bt, s, cout)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def conv3(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+          num_frames: int, site: str = "dx") -> torch.Tensor:
+    """The plain 3-tap frame conv: x ``(b*t, s, cin)``, w ``(cout, cin, 3, 1,
+    1)``, bias ``(cout,)`` or None. ``vk_conv3`` on CUDA tensors."""
+    if _build.on_cpu(x, w):
+        return conv3_plain(x, w, bias, num_frames)
+    bt, s, cin = x.shape
+    cout = w.shape[0]
+    if bt % num_frames or cin % _TILE_K or cout % 8:
+        raise ValueError(f"conv3 shape not supported: {tuple(x.shape)} -> {cout}")
+    _build.check(x, "x", torch.bfloat16)
+    wk = w.reshape(cout, cin, 3).permute(0, 2, 1).contiguous()
+    _build.check(wk, "w", torch.bfloat16)
+    if bias is not None:
+        bias = bias.float().contiguous()
+        _build.check(bias, "bias", torch.float32, (cout,))
+    out = torch.empty(bt, s, cout, dtype=x.dtype, device=x.device)
+    _build.launch("vk_conv3", x.data_ptr(), wk.data_ptr(), _build.ptr(bias),
+                  out.data_ptr(), bt * s, s, num_frames, cin, cout)
+    _build.count("conv3", site)
+    return out
+
+
+def _flipped_taps(w: torch.Tensor) -> torch.Tensor:
+    """``(cout, cin, 3, 1, 1)`` -> ``(cin, cout, 3, 1, 1)`` with the taps
+    reversed: the conv whose output is the input gradient."""
+    return w.transpose(0, 1).flip(2).contiguous()
+
+
+def _conv3_weight_grad(xn, gy, num_frames, shape):
+    """dW[:, :, tap] = sum over tokens of gy[f]^T xn[f + tap - 1]."""
+    bt, s, cin = xn.shape
+    cout = gy.shape[-1]
+    xv = xn.reshape(bt // num_frames, num_frames, s, cin)
+    gv = gy.reshape(bt // num_frames, num_frames, s, cout)
+    dot = lambda g, a: torch.matmul(g.reshape(-1, cout).t(), a.reshape(-1, cin)).float()
+    dw = torch.stack([dot(gv[:, 1:], xv[:, :-1]), dot(gv, xv), dot(gv[:, :-1], xv[:, 1:])], -1)
+    return dw.reshape(shape)
+
+
+def conv3_vjp(x, w, gy, num_frames, needs=(True, True, True), site="dx"):
+    """(dx, dw, db) of ``conv3(x, w, b)`` for the cotangent ``gy`` (None
+    where not needed): dx on :func:`conv3` with flipped, transposed taps."""
+    dx = conv3(gy, _flipped_taps(w), None, num_frames, site=site) if needs[0] else None
+    dw = _conv3_weight_grad(x, gy, num_frames, w.shape).to(w.dtype) if needs[1] else None
+    db = gy.float().sum((0, 1)) if needs[2] else None
+    return dx, dw, db
+
+
+def _gn_silu_bwd(ctx, saved, gy, site):
+    """Shared VJP of ``conv3(silu(x * scale + shift)) + b``: returns dx,
+    dscale, dshift, dw, db (None where not needed) and xn. ``saved`` is
+    ``ctx.saved_tensors``, unpacked once by the caller."""
+    x, scale, shift, w = saved[:4]
+    nf = ctx.num_frames
+    need = ctx.needs_input_grad
+    a = x.float() * scale.float()[:, None] + shift.float()[:, None]
+    sig = torch.sigmoid(a)
+    xn = (a * sig).to(x.dtype)
+    dx = dscale = dshift = None
+    dxn, dw, db = conv3_vjp(xn, w, gy, nf, (need[0] or need[1] or need[2], need[3], need[4]),
+                            site=f"{site}-dx")
+    if dxn is not None:
+        da = dxn.float() * sig * (1.0 + a * (1.0 - sig))
+        if need[0]:
+            dx = (da * scale.float()[:, None]).to(x.dtype)
+        if need[1]:
+            dscale = (da * x.float()).sum(1).to(scale.dtype)
+        if need[2]:
+            dshift = da.sum(1).to(shift.dtype)
+    if db is not None:
+        db = db.to(ctx.bias_dtype)
+    return dx, dscale, dshift, dw, db, xn
+
+
+class _GnSiluConv3Emb(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, shift, w, b, emb, num_frames):
+        ctx.save_for_backward(x, scale, shift, w)
+        ctx.num_frames, ctx.bias_dtype, ctx.emb_dtype = num_frames, b.dtype, emb.dtype
+        return gn_silu_conv3(x, scale, shift, w, b.float(), num_frames, emb=emb.float(),
+                             site="emb")
+
+    @staticmethod
+    def backward(ctx, gy):
+        gy = gy.contiguous()
+        dx, dscale, dshift, dw, db, _ = _gn_silu_bwd(ctx, ctx.saved_tensors, gy, "emb")
+        demb = gy.float().sum(1).to(ctx.emb_dtype) if ctx.needs_input_grad[5] else None
+        return dx, dscale, dshift, dw, db, demb, None
+
+
+class _GnSiluConv3Res(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, shift, w, b, residual, res_scale, num_frames):
+        ctx.save_for_backward(x, scale, shift, w, b, res_scale)
+        ctx.num_frames, ctx.bias_dtype = num_frames, b.dtype
+        return gn_silu_conv3(x, scale, shift, w, b.float(), num_frames, residual=residual,
+                             res_scale=res_scale.float(), site="res")
+
+    @staticmethod
+    def backward(ctx, gy):
+        gy = gy.contiguous()
+        saved = ctx.saved_tensors
+        w, b, res_scale = saved[3:]
+        gs = (res_scale.float() * gy.float()).to(gy.dtype)
+        dx, dscale, dshift, dw, db, xn = _gn_silu_bwd(ctx, saved, gs, "res")
+        dres = gy if ctx.needs_input_grad[5] else None
+        drs = None
+        if ctx.needs_input_grad[6]:
+            y = conv3(xn, w, b, ctx.num_frames, site="res-y")
+            drs = (gy.float() * y.float()).sum().reshape(res_scale.shape).to(res_scale.dtype)
+        return dx, dscale, dshift, dw, db, dres, drs, None
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def fused_gn_silu_conv3_emb(x, scale, shift, w, b, emb, num_frames):
-    """``conv3(silu(x * scale + shift)) + b + emb[frame]``."""
-    return gn_silu_conv3(x, scale, shift, w, b, num_frames, emb=emb, site="emb")
+    """``conv3(silu(x * scale + shift)) + b + emb[frame]``; differentiable."""
+    if _wants_grad(x, scale, shift, w, b, emb):
+        return _GnSiluConv3Emb.apply(x, scale, shift, w, b, emb, num_frames)
+    return gn_silu_conv3(x, scale, shift, w, b.float(), num_frames, emb=emb.float(),
+                         site="emb")
 
 
 def fused_gn_silu_conv3_res(x, scale, shift, w, b, residual, res_scale,
                             num_frames):
     """``residual + res_scale * (conv3(silu(x * scale + shift)) + b)``: the
     temporal residual and the AlphaBlender ``a*x + (1-a)*(x+h)`` collapsed,
-    with ``res_scale = 1 - a``."""
-    return gn_silu_conv3(x, scale, shift, w, b, num_frames, residual=residual,
-                         res_scale=res_scale, site="res")
+    with ``res_scale = 1 - a``; differentiable."""
+    res_scale = res_scale.reshape(1)
+    if _wants_grad(x, scale, shift, w, b, residual, res_scale):
+        return _GnSiluConv3Res.apply(x, scale, shift, w, b, residual, res_scale, num_frames)
+    return gn_silu_conv3(x, scale, shift, w, b.float(), num_frames, residual=residual,
+                         res_scale=res_scale.float(), site="res")
