@@ -22,8 +22,16 @@ Phases, each timed on its own line:
    dynamics loss) at full width with seeded random weights and non-zero
    adapters: a small slice of the step on the card in bf16 against the CPU
    in fp32, three optimizer steps with the launch counts of every kernel,
-   one forward + backward with every UNet weight requiring grad, and a
-   traced step (device time by kernel group).
+   and a traced step (device time by kernel group);
+6. phase1: the phase-1 recipe (``configs/vista_phase1.yaml``: 576x1024, 25
+   frames, batch 1, no LoRA, every UNet weight trained under
+   ``slow_spatial``, remat, dynamics loss, gradient accumulation 2) at full
+   width with seeded random weights: two small micro-steps on the card in
+   bf16 against the CPU in fp32 (the loss, and every UNet gradient against
+   its own size, beside the same error of bf16 on the CPU), four
+   micro-steps (two optimizer steps) with the launch counts of every kernel
+   and checks of which tensors move after which call, and a traced
+   optimizer step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -33,7 +41,9 @@ before it. Tables too long for the end of the output go to ``chiprun_out/``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -75,19 +85,35 @@ KERNELS = {
         route="cuda", source="vista_tpu_torch/csrc/attention_bwd.cu",
         replaces="vista_tpu/ops/flash_attention.py:346 (_bwd_dq_kernel); "
                  "vista_tpu/ops/flash_attention.py:368 (_bwd_dkv_kernel); "
-                 "vista_tpu/ops/tiny_attention.py:201 (_tiny_bwd_kernel)"),
+                 "vista_tpu/ops/tiny_attention.py:201 (_tiny_bwd_kernel); "
+                 "vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, softmax backward)"),
     "ff_bwd": dict(
-        route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu",
+        route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu with csrc/qkv_bwd.cu (vk_seg_gemm) "
+                             "and csrc/layer_norm.cu",
         replaces="vista_tpu/ops/fused_ff.py:307 (_ff_bwd_kernel); "
                  "vista_tpu/ops/fused_ff.py:434 (_ff_bwd_wide_kernel)"),
     "conv3": dict(
         route="cuda", source="vista_tpu_torch/csrc/gn_silu_conv3.cu (vk_conv3)",
         replaces="vista_tpu/ops/temporal_conv.py:155 (_conv3_kernel)"),
+    "qkv_bwd": dict(
+        route="cuda", source="vista_tpu_torch/csrc/qkv_bwd.cu (vk_seg_gemm) with "
+                             "csrc/ff_bwd.cu (vk_ln_bwd, vk_wgrad, vk_sum_splits) and "
+                             "csrc/layer_norm.cu",
+        replaces="vista_tpu/ops/fused_qkv.py:224 (_qkv_bwd_kernel); "
+                 "vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, LN + q/k/v backward)"),
+    "linear_residual_bwd": dict(
+        route="cuda", source="vista_tpu_torch/csrc/qkv_bwd.cu (vk_seg_gemm) with "
+                             "csrc/ff_bwd.cu (vk_wgrad, vk_col_sum, vk_sum_splits)",
+        replaces="vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, out-projection "
+                 "backward: do, dWo, dbo)"),
 }
 SAMPLE_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3")
 TRAIN_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3",
                  "layer_norm", "attention_bwd", "ff_bwd", "conv3")
-# the demangled names of each family's device functions, for the profiles
+PHASE1_KERNELS = TRAIN_KERNELS + ("qkv_bwd", "linear_residual_bwd")
+# the demangled names of each group's device functions, for the profiles;
+# seg_gemm, the LN backward and the split-K reductions serve ff_bwd, qkv_bwd
+# and K3's backward alike
 SYMBOLS = {
     "attention": ("vk::attention_kernel<",),
     "ln_linear": ("vk::ln_linear_kernel",),
@@ -96,8 +122,10 @@ SYMBOLS = {
     "conv3": ("vk::gn_silu_conv3_kernel<false>",),
     "layer_norm": ("vk::layer_norm_kernel",),
     "attention_bwd": ("vk::attn_bwd_",),
-    "ff_bwd": ("vk::ff_bwd_dh_kernel", "vk::gemm_f32_kernel", "vk::ln_bwd_kernel",
-               "vk::wgrad_kernel", "vk::col_sum_kernel", "vk::sum_splits_kernel"),
+    "ff_bwd_dh": ("vk::ff_bwd_dh_kernel",),
+    "seg_gemm (dxn of ff_bwd, qkv_bwd; K3 da)": ("vk::seg_gemm_kernel",),
+    "ln_bwd + split-K sums": ("vk::ln_bwd_kernel", "vk::wgrad_kernel", "vk::col_sum_kernel",
+                              "vk::sum_splits_kernel"),
 }
 
 
@@ -160,15 +188,30 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 products and convolutions on the card in full fp32, not TF32
+    (which keeps about three decimal digits): the reference that a kernel is
+    held to. PyTorch's defaults are matmul.allow_tf32 False, cudnn.allow_tf32
+    True; the main paths keep them."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 def compare(name, shape, kernel_fn, plain_fn, plain_inputs_fn, rows, flops, nbytes,
             library_fn=None, reps=5):
-    """Run the kernel and its plain version in fp32 on the same bf16 inputs,
-    compare every output (each normalised by its own largest magnitude), and
-    time the kernel, the plain version on the bf16 inputs and the library
-    call."""
+    """Run the kernel and its plain version in fp32 (no TF32) on the same bf16
+    inputs, compare every output (each normalised by its own largest
+    magnitude), and time the kernel, the plain version on the bf16 inputs
+    and the library call."""
     got = kernel_fn()
     torch.cuda.synchronize()
-    ref = plain_inputs_fn()
+    with full_fp32():
+        ref = plain_inputs_fn()
     if isinstance(got, torch.Tensor):
         got, ref = [got], [ref]
     errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(got, ref)]
@@ -363,11 +406,112 @@ def kernel_checks():
                       6 * bt * s * c * c, 2 * (2 * bt * s * c + 3 * c * c),
                       lambda: time_ms(lambda: F.conv3d(g5, wt, padding=(1, 0, 0))))
         del gy, g5
+    ok &= phase1_kernel_checks(rnd, f32, rows)
     OUT.mkdir(exist_ok=True)
     (OUT / "kernel_checks.json").write_text(json.dumps(dict(card=CARD, rows=rows), indent=1))
     if not ok:
         raise SystemExit("a kernel disagrees with its plain version")
     return rows
+
+
+def composite_bwd_ms(fwd, inputs):
+    """The library column of a backward row: autograd of a composition of
+    cuBLAS/ATen calls (``fwd`` of ``inputs``, which require grad), backward
+    minus forward, with a cotangent of ones."""
+    with torch.no_grad():
+        fwd_ms = time_ms(fwd)
+        dy = torch.ones_like(fwd())
+
+    def fwd_bwd():
+        for t in inputs:
+            t.grad = None
+        fwd().backward(dy)
+
+    total = time_ms(fwd_bwd)
+    for t in inputs:
+        t.grad = None
+    return total - fwd_ms
+
+
+def phase1_kernel_checks(rnd, f32, rows):
+    """The phase-1 training path's backward kernels at its shapes: 576x1024
+    -> 72x128 latents, 25 frames, batch 1, so n = 25 h w token rows."""
+    from vista_tpu_torch.ops.attention import attention_bwd, attention_bwd_plain, attention_forward
+    from vista_tpu_torch.ops.fused_ff import ff_bwd, ff_bwd_plain
+    from vista_tpu_torch.ops.linear import (linear_residual_bwd, linear_residual_bwd_plain,
+                                            ln_linear_split_bwd, ln_linear_split_bwd_plain)
+
+    bf = torch.bfloat16
+    ok = True
+    # K2 split's backward (#7): spatial at ds1, ds2, ds4; temporal at ds1
+    # (rows, t, c).
+    for shape, tag in [((230400, 320), "spatial ds1"), ((57600, 640), "spatial ds2"),
+                       ((14400, 1280), "spatial ds4"), ((9216, 25, 320), "temporal ds1")]:
+        c = shape[-1]
+        n = math.prod(shape[:-1])
+        x, g = rnd(*shape, std=2.0), rnd(3, *shape)
+        lw, lb = rnd(c, std=0.1, dtype=torch.float32) + 1, rnd(c, std=0.1, dtype=torch.float32)
+        w = rnd(3 * c, c, std=c ** -0.5)
+        xl = x.reshape(-1, c).detach().requires_grad_()
+        lwb = lw.to(bf).requires_grad_()
+        lbb = lb.to(bf).requires_grad_()
+        wl = w.detach().requires_grad_()
+        # bf16 x, g, w in and dx, dW out; fp32 gamma, beta in and their grads out
+        nbytes = 2 * (5 * n * c + 6 * c * c) + 16 * c
+        ok &= compare("qkv_bwd", f"{tag} {shape}->3x{c}",
+                      lambda: ln_linear_split_bwd(x, lw, lb, w, g),
+                      lambda: ln_linear_split_bwd_plain(x, lw, lb, w, g),
+                      lambda: ln_linear_split_bwd_plain(*f32(x, lw, lb, w, g)), rows,
+                      12 * n * c * c, nbytes,
+                      lambda: composite_bwd_ms(
+                          lambda: F.linear(F.layer_norm(xl, (c,), lwb, lbb), wl),
+                          (xl, lwb, lbb, wl)), reps=3)
+        del x, g, xl, wl
+    # K3's backward: attn-out at ds1, temporal-out at ds1 and ds4.
+    for shape, tag in [((230400, 320), "attn-out ds1"), ((9216, 25, 320), "temporal-out ds1"),
+                       ((576, 25, 1280), "temporal-out ds4")]:
+        c = shape[-1]
+        m = math.prod(shape[:-1])
+        a, g = rnd(*shape), rnd(*shape)
+        w, b = rnd(c, c, std=c ** -0.5), rnd(c, std=0.1, dtype=bf)
+        al, wl, bl = (t.detach().requires_grad_() for t in (a, w, b))
+        res = rnd(*shape)
+        ok &= compare("linear_residual_bwd", f"{tag} {shape}",
+                      lambda: linear_residual_bwd(a, w, g),
+                      lambda: linear_residual_bwd_plain(a, w, g),
+                      lambda: linear_residual_bwd_plain(*f32(a, w, g)), rows,
+                      4 * m * c * c, 2 * (3 * m * c + 2 * c * c) + 4 * c,
+                      lambda: composite_bwd_ms(lambda: F.linear(al, wl, bl) + res, (al, wl, bl)))
+        del a, g, al, res
+    # attention_bwd at ds1 576x1024: 2 of the 25 frames, so that the plain
+    # fp32 (2, 5, 9216, 9216) score tensors fit.
+    b, s, h = 2, 9216, 5
+    q, k, v, do = (rnd(b, s, h * 64) for _ in range(4))
+    o, lse = attention_forward(q, k, v, h, want_lse=True)
+    q4, k4, v4, do4 = (sdpa_layout(t, h).detach().requires_grad_() for t in (q, k, v, do))
+    ok &= compare("attention_bwd", f"ds1 576x1024 (2 of 25, {s}, {h}x64)",
+                  lambda: attention_bwd(q, k, v, o, lse, do, h),
+                  lambda: attention_bwd_plain(q, k, v, o, lse, do, h),
+                  lambda: attention_bwd_plain(*f32(q, k, v, o, lse, do), h), rows,
+                  10 * b * h * s * s * 64, 2 * 8 * b * s * h * 64 + 4 * b * h * s,
+                  lambda: composite_bwd_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                                           (q4, k4, v4)), reps=3)
+    del q, k, v, do, o, lse, q4, k4, v4, do4
+    torch.cuda.empty_cache()
+    # the feed-forward backward at ds1, every gradient
+    m, c = 230400, 320
+    x, dy = rnd(m, c), rnd(m, c)
+    lw, lb = rnd(c, std=0.1, dtype=torch.float32) + 1, rnd(c, std=0.1, dtype=torch.float32)
+    w1, b1 = rnd(8 * c, c, std=c ** -0.5), rnd(8 * c, std=0.1, dtype=torch.float32)
+    w2 = rnd(c, 4 * c, std=(4 * c) ** -0.5)
+    ok &= compare("ff_bwd", f"({m},{c}) all 7 grads, ds1 576x1024",
+                  lambda: ff_bwd(x, lw, lb, w1, b1, w2, dy),
+                  lambda: ff_bwd_plain(x, lw, lb, w1, b1, w2, dy),
+                  lambda: ff_bwd_plain(*f32(x, lw, lb, w1, b1, w2, dy)), rows,
+                  64 * m * c * c, 2 * (3 * m * c + 2 * 12 * c * c), reps=3)
+    del x, dy
+    torch.cuda.empty_cache()
+    return ok
 
 
 # ---------------------------------------------------------------- phase 4
@@ -441,19 +585,24 @@ def run_request(engine, inputs, steps):
     return lat, px, t1 - t0, time.perf_counter() - t1
 
 
-def small_cfg(train=False):
-    """Widths the kernels take (head_dim 64, c % 32 == 0), fp32; ``train``:
-    LoRA + action control and the phase-2 conditioner."""
+def small_cfg(kind="sample"):
+    """Widths the kernels take (head_dim 64, c % 32 == 0), fp32. ``kind``:
+    ``"sample"``; ``"phase2"``, LoRA + action control and the phase-2
+    conditioner; ``"phase1"``, neither, ucg dropout on the default keys,
+    remat."""
     from vista_tpu_torch.engine.engine import EngineConfig
 
     base = EngineConfig().tiny()
+    adapters = kind == "phase2"
     unet = dataclasses.replace(base.unet, model_channels=64, num_head_channels=64,
                                context_dim=64, adm_in_channels=48, num_frames=5,
-                               dtype="float32", add_lora=train, action_control=train)
+                               dtype="float32", add_lora=adapters, action_control=adapters,
+                               remat=kind != "sample")
     cond = base.conditioner
     cond = dataclasses.replace(
-        cond, vector_outdim=16, action_control=train, ucg_rate=0.15 if train else 0.0,
-        ucg_keys=PHASE2_UCG_KEYS if train else cond.ucg_keys,
+        cond, vector_outdim=16, action_control=adapters,
+        ucg_rate=0.0 if kind == "sample" else 0.15,
+        ucg_keys=PHASE2_UCG_KEYS if adapters else cond.ucg_keys,
         clip=dataclasses.replace(cond.clip, output_dim=64, dtype="float32"),
         vae=dataclasses.replace(cond.vae, ch=32, dtype="float32"))
     return dataclasses.replace(base, unet=unet, num_frames=5, conditioner=cond,
@@ -666,6 +815,15 @@ def train_batch(h, w, frames, gen, device):
             "speed": u(1, 4) * 10, "angle": u(1, 4), "goal": u(1, 2) * 10}
 
 
+def move_draws(draws, dev):
+    move = lambda t: None if t is None else t.to(dev)
+    return dataclasses.replace(
+        draws, posterior=move(draws.posterior), cond_aug=move(draws.cond_aug),
+        ucg_keep=None if draws.ucg_keep is None else {k: move(v) for k, v in draws.ucg_keep.items()},
+        loss=dataclasses.replace(draws.loss, **{f.name: move(getattr(draws.loss, f.name))
+                                                for f in dataclasses.fields(draws.loss)}))
+
+
 def train_reference(seed):
     """The phase-2 step at a small size: loss and adapter gradients on the
     card in bf16 against the same weights, batch and draws on the CPU in fp32."""
@@ -674,8 +832,7 @@ def train_reference(seed):
 
     _, train = phase2_cfg()
     train = dataclasses.replace(train, loss=dataclasses.replace(train.loss, num_frames=5))
-    cfg = small_cfg(train=True)
-    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, remat=True))
+    cfg = small_cfg("phase2")
     cpu = VistaEngine(cfg, "cpu")
     init_engine(cpu, torch.Generator().manual_seed(seed))
     gpu = card_twin(cpu, cfg)
@@ -686,13 +843,8 @@ def train_reference(seed):
     for name, engine in (("cpu", cpu), ("card", gpu)):
         dev = engine.device
         trainer = Trainer(engine, train)
-        move = lambda t: t.to(dev)
-        d = dataclasses.replace(
-            draws, posterior=move(draws.posterior), cond_aug=move(draws.cond_aug),
-            ucg_keep={k: move(v) for k, v in draws.ucg_keep.items()},
-            loss=dataclasses.replace(draws.loss, **{f.name: move(getattr(draws.loss, f.name))
-                                                    for f in dataclasses.fields(draws.loss)}))
-        loss, _ = trainer.loss_and_grads({k: move(v) for k, v in batch.items()}, d)
+        loss, _ = trainer.loss_and_grads({k: v.to(dev) for k, v in batch.items()},
+                                         move_draws(draws, dev))
         grads = trainer.grads()
         out[name] = (float(loss), torch.cat([g.flatten().cpu() for g in grads.values()]))
     (loss_ref, g_ref), (loss, g) = out["cpu"], out["card"]
@@ -773,34 +925,280 @@ def train_run(seed):
         raise SystemExit("the optimizer step touched the wrong tensors")
     del frozen, start
 
-    # Every UNet weight requiring grad: every output of ff_bwd and conv3.
-    for p in engine.unet.parameters():
-        p.requires_grad_(True)
-    before = dict(_build.SITES)
-    t1 = time.perf_counter()
-    loss, _ = trainer.loss_and_grads(batch, draw_train(engine, tcfg, batch, gen))
-    torch.cuda.synchronize()
-    full_s = time.perf_counter() - t1
-    named = dict(engine.unet.named_parameters())
-    need = [n for n in named if (".ff.net." in n or ".ff_in.net." in n or "time_stack.in_layers"
-                                 in n or "time_stack.out_layers" in n or "time_mixer" in n)]
-    bad = [n for n in need if named[n].grad is None or not bool(torch.isfinite(named[n].grad).all())]
-    new_sites = {k: v - before.get(k, 0) for k, v in _build.SITES.items() if v != before.get(k, 0)}
-    log(f"  every weight requiring grad: loss {float(loss):.5f}, {full_s:.3f} s, "
-        f"{len(need)} feed-forward / temporal-conv / mix grads, non-finite or missing: {bad}; "
-        f"launches {json.dumps(new_sites, sort_keys=True)}")
-    if bad or not new_sites.get("conv3/res-y") or not math.isfinite(float(loss)):
-        raise SystemExit("the full backward missed a gradient")
-    for n, p in named.items():
-        p.requires_grad_(n in trainer.params)
-        p.grad = None
-
     prof = _device_profile("train_step", lambda: trainer(
         batch, draw_train(engine, tcfg, batch, gen)))
     OUT.mkdir(exist_ok=True)
     (OUT / "train.json").write_text(json.dumps(dict(
         card=CARD, steps=steps, s_per_step=s_step, peak_gib=peak, launches=sites,
-        full_backward_s=full_s, profile=prof), indent=1))
+        profile=prof), indent=1))
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+
+PHASE1_MICRO_STEPS = 4  # two optimizer steps at accum_steps = 2
+
+
+def phase1_cfg():
+    """configs/vista_phase1.yaml: the engine and the train recipe (the
+    loss's ``cond_frames_choices`` is the config's default,
+    [[], [0], [0, 1], [0, 1, 2]])."""
+    from vista_tpu_torch.diffusion.loss import LossConfig
+    from vista_tpu_torch.engine.engine import EngineConfig
+    from vista_tpu_torch.engine.training import TrainConfig
+
+    base = EngineConfig()
+    cfg = dataclasses.replace(
+        base, unet=dataclasses.replace(base.unet, remat=True),
+        conditioner=dataclasses.replace(base.conditioner, ucg_rate=0.15))
+    train = TrainConfig(learning_rate=5e-5, warmup_steps=1000, grad_clip=0.3, accum_steps=2,
+                        policy="slow_spatial", slow_spatial_factor=0.1, ema_decay=0.9999,
+                        loss=LossConfig(num_frames=25, sigma_p_mean=1.0, sigma_p_std=1.6,
+                                        weighting="v", use_additional_loss=True,
+                                        additional_loss_weight=0.1, replace_cond_frames=True))
+    return cfg, train
+
+
+def phase1_batch(h, w, frames, gen, device):
+    """Synthetic clip in [-1, 1] and its conditioning scalars (no actions)."""
+    batch = train_batch(h, w, frames, gen, device)
+    return {k: batch[k] for k in ("frames", "fps_id", "motion_bucket_id", "cond_aug")}
+
+
+# Per UNet tensor, |card - cpu|_2 / max(|cpu|_2, floor). bf16 alone (the
+# same step in bf16 on the CPU) reads up to 5.9e-2 on the worst tensor and
+# the card up to 6.2e-2 (the temporal q/k weights and a time-mixer scalar);
+# dWq and dWk swapped at one site read about 1.4 (``phase1_reference``
+# checks that).
+PHASE1_GRAD_TOL = 0.15
+PHASE1_GRAD_FLOOR = 1e-3  # the floor, as a share of the largest tensor's |cpu|_2
+
+
+def grad_errors(g, g_ref):
+    """Each tensor's error against its own size: the L2 norm of the
+    difference over the reference's L2 norm, with a floor of
+    ``PHASE1_GRAD_FLOOR`` times the largest reference norm so that a tensor
+    whose gradient all but cancels is not held to its own rounding. A
+    swapped or garbage gradient reads about 1 or more."""
+    norms = {n: float(t.norm()) for n, t in g_ref.items()}
+    floor = PHASE1_GRAD_FLOOR * max(norms.values())
+    return {n: float((g[n].float() - t).norm()) / max(norms[n], floor)
+            for n, t in g_ref.items()}
+
+
+def phase1_reference(seed):
+    """Two micro-steps of the phase-1 step at a small size on the card in
+    bf16 against the same weights, batch and draws on the CPU in fp32 (no
+    TF32 there): the loss and every UNet gradient of each micro-step, each
+    tensor against its own size (:func:`grad_errors`). The control is the
+    same step in bf16 on the CPU through the plain versions: the error that
+    bf16 alone makes, with no kernel in the run."""
+    from vista_tpu_torch.engine.engine import VistaEngine
+    from vista_tpu_torch.engine.training import Trainer, draw_train
+
+    _, train = phase1_cfg()
+    train = dataclasses.replace(train, warmup_steps=0,
+                                loss=dataclasses.replace(train.loss, num_frames=5))
+    cfg = small_cfg("phase1")
+    cpu = VistaEngine(cfg, "cpu")
+    init_engine(cpu, torch.Generator().manual_seed(seed))
+    gpu = card_twin(cpu, cfg)
+    control = VistaEngine(to_bf16(cfg), "cpu")
+    for name in ("unet", "decoder", "encoder", "conditioner"):
+        getattr(control, name).load_state_dict(getattr(cpu, name).state_dict())
+    gen = torch.Generator().manual_seed(seed + 1)
+    batch = phase1_batch(64, 64, 5, gen, "cpu")
+    draws = [draw_train(cpu, train, batch, gen) for _ in range(2)]
+    out = {}
+    for name, engine in (("cpu", cpu), ("card", gpu), ("control", control)):
+        dev = engine.device
+        trainer = Trainer(engine, train)
+        out[name] = []
+        for d in draws:
+            loss, _ = trainer.loss_and_grads({k: v.to(dev) for k, v in batch.items()},
+                                             move_draws(d, dev))
+            out[name].append((float(loss), {n: g.cpu() for n, g in trainer.grads().items()}))
+            trainer.apply()
+    ok, readings = True, []
+    labels = dict(card="bf16 kernels on the card", control="bf16 plain on the CPU")
+    for i, (loss_ref, g_ref) in enumerate(out["cpu"]):
+        reading = dict(micro_step=i)
+        for name in ("card", "control"):
+            loss, g = out[name][i]
+            errs = grad_errors(g, g_ref)
+            worst = max(errs, key=errs.get)
+            rel_loss = abs(loss - loss_ref) / abs(loss_ref)
+            reading[name] = dict(rel_loss=rel_loss, worst=errs[worst], worst_tensor=worst,
+                                 median=sorted(errs.values())[len(errs) // 2])
+            log(f"  small phase-1 micro-step {i}, {labels[name]} vs fp32 on the CPU: loss "
+                f"rel {rel_loss:.3e}; per UNet tensor ({len(g)}), "
+                f"|diff|_2 / |cpu|_2 (floor {PHASE1_GRAD_FLOOR} of the largest): worst "
+                f"{errs[worst]:.3e} ({worst}), median {reading[name]['median']:.3e} "
+                f"(limit {PHASE1_GRAD_TOL})")
+        # the check's own test: the card's dWq and dWk swapped at the last
+        # temporal self-attention must fail it
+        g = out["card"][i][1]
+        q = [n for n in g if n.endswith("time_stack.0.attn1.to_q.weight")][-1]
+        k = q.replace("to_q", "to_k")
+        swapped = grad_errors({**g, q: g[k], k: g[q]}, g_ref)
+        reading["swapped"] = dict(tensor=q, q=swapped[q], k=swapped[k])
+        log(f"  the same check with the card's dWq and dWk swapped ({q}): {swapped[q]:.3e} "
+            f"and {swapped[k]:.3e} (must exceed {PHASE1_GRAD_TOL})")
+        readings.append(reading)
+        card = reading["card"]
+        ok &= card["rel_loss"] <= TRAIN_TOL and card["worst"] <= PHASE1_GRAD_TOL
+        ok &= min(swapped[q], swapped[k]) > PHASE1_GRAD_TOL
+    OUT.mkdir(exist_ok=True)
+    (OUT / "phase1_reference.json").write_text(json.dumps(dict(card=CARD, readings=readings),
+                                                          indent=1))
+    if not ok:
+        raise SystemExit("the small phase-1 step disagrees with the CPU reference")
+
+
+def checksums(tensors):
+    """One int64 sum of the raw bits per tensor (one host sync): a change of
+    any value changes it, short of a cancellation."""
+    return torch.stack([t.view(torch.int32).sum(dtype=torch.int64) for t in tensors]).cpu()
+
+
+def phase1_run(seed):
+    from vista_tpu_torch.engine.engine import VistaEngine
+    from vista_tpu_torch.engine.training import Trainer, draw_train
+    from vista_tpu_torch.ops import _build
+
+    phase("phase1-reference", phase1_reference, seed)
+    torch.cuda.empty_cache()
+    log(f"  device memory held before the full-width phase-1 engine: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    cfg, tcfg = phase1_cfg()
+    # The recipe's 1000-step warm-up scales the first updates by 1e-6 and
+    # 1e-3: too small for most fp32 masters to change, so the checks below
+    # could not see the updates. The run takes the full rate from update 0;
+    # the work per step is the same.
+    tcfg = dataclasses.replace(tcfg, warmup_steps=0)
+    engine = VistaEngine(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    init_engine(engine, gen)
+    trainer = Trainer(engine, tcfg)
+    names = list(trainer.master)
+    n_train = sum(m.numel() for m in trainer.master.values())
+    log(f"  phase-1 engine: VideoUNet {n_train / 1e9:.3f} B params, all trained "
+        f"(slow_spatial), CLIP ViT-H, VAE encoder; bf16, seeded random weights, remat, "
+        f"accum_steps {tcfg.accum_steps} ({time.perf_counter() - t0:.1f} s)")
+    frozen = {f"{name}.{n}": p.detach().cpu() for name in ("encoder", "conditioner")
+              for n, p in getattr(engine, name).named_parameters()}
+    batch = phase1_batch(576, 1024, 25, gen, "cuda")
+    apply_s = []
+    apply = trainer.apply
+
+    def timed_apply(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = apply(*args)
+        torch.cuda.synchronize()
+        apply_s.append(time.perf_counter() - t)
+        return out
+
+    trainer.apply = timed_apply
+    ema_start = checksums(trainer.ema.values())
+    steps, faults = [], []
+    with_moment = torch.zeros(len(names), dtype=torch.bool)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    for i in range(PHASE1_MICRO_STEPS):
+        applying = (i + 1) % tcfg.accum_steps == 0
+        before = checksums(trainer.master.values())
+        # Which tensors the ucg dropout and the one-token cross-attentions
+        # leave without a gradient depends on the draws: keep the masters of
+        # those whose accumulated gradient is still zero before an applying
+        # call, to hold them to the weight decay alone if it stays zero.
+        held = {}
+        if applying:
+            zero = torch.stack([a.abs().max() == 0 for a in trainer.acc.values()]).cpu()
+            held = {n: trainer.master[n].clone() for n, z in zip(names, zero) if z}
+        draws = draw_train(engine, tcfg, batch, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = trainer(batch, draws)
+        torch.cuda.synchronize()
+        m["seconds"] = time.perf_counter() - t1
+        m["apply_s"] = apply_s[-1]
+        steps.append(m)
+        moved = checksums(trainer.master.values()) != before
+        if not applying and bool(moved.any()):
+            faults.append(f"micro-step {i} applies nothing, but {int(moved.sum())} tensors moved")
+        if applying:
+            # Adam's first moment is non-zero exactly where a gradient has been
+            with_moment = torch.stack([(mu != 0).any() for mu in trainer.mu.values()]).cpu()
+            still = [n for n, mv, g in zip(names, moved, with_moment) if g and not mv]
+            if still:
+                faults.append(f"micro-step {i}: {len(still)} trained tensors with a gradient "
+                              f"did not move, e.g. {still[:3]}")
+            for n, g in zip(names, with_moment):
+                if g:
+                    continue
+                old = held.get(n)
+                limit = None if old is None else (
+                    tcfg.learning_rate * trainer.mults[n] * tcfg.weight_decay
+                    + 2.0 ** -23) * float(old.abs().max())
+                if old is None or float((trainer.master[n] - old).abs().max()) > limit:
+                    faults.append(f"micro-step {i}: {n} has no gradient but moved by more "
+                                  f"than its weight decay")
+        log(f"  micro-step {i}{' (applies)' if applying else ''}: loss {m['loss']:.5f} (main "
+            f"{m['loss_main']:.5f}, hf {m['loss_hf']:.5f}), grad norm {m['grad_norm']:.4e}, "
+            f"sigma {m['sigma_mean']:.3f}: {m['seconds']:.3f} s (optimizer {m['apply_s']:.3f} "
+            f"s); {int(moved.sum())} of {len(names)} tensors moved"
+            + (f", {int(with_moment.sum())} with a gradient so far" if applying else ""))
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise SystemExit(f"phase 1: micro-step {i} is not finite: {m}")
+        del held
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches, sites = dict(_build.LAUNCHES), dict(_build.SITES)
+    k = tcfg.accum_steps
+    s_micro = sum(m["seconds"] for m in steps[k:]) / (len(steps) - k)
+    s_opt = sum(m["seconds"] for m in steps[-k:])
+    opt_share = sum(m["apply_s"] for m in steps[-k:]) / s_opt
+    log(f"  phase 1 at 576x1024: {s_micro:.3f} s per micro-step and {s_opt:.3f} s per "
+        f"optimizer step (the second; the first {sum(m['seconds'] for m in steps[:k]):.3f} s), "
+        f"optimizer loop {100 * opt_share:.1f}% of it; peak {peak:.2f} GiB; card {CARD}")
+    log(f"  launches over the {len(steps)} micro-steps: {json.dumps(sites, sort_keys=True)}")
+    ema_moved = checksums(trainer.ema.values()) != ema_start
+    ema_still = [n for n, mv, g in zip(names, ema_moved, with_moment) if g and not mv]
+    now = {f"{name}.{n}": p for name in ("encoder", "conditioner")
+           for n, p in getattr(engine, name).named_parameters()}
+    moved_frozen = [n for n, p in frozen.items() if not torch.equal(p, now[n].cpu())]
+    log(f"  {int(with_moment.sum())} of {len(names)} tensors had a gradient (the others: the "
+        f"one-token cross-attentions' q/k and norm2); EMA moved for {int(ema_moved.sum())}; "
+        f"encoder and conditioner tensors changed: {len(moved_frozen)} of {len(frozen)}")
+    if ema_still:
+        faults.append(f"the EMA of {len(ema_still)} trained tensors did not move")
+    if moved_frozen:
+        faults.append(f"frozen tensors changed: {moved_frozen[:3]}")
+    missing = missing_launches(PHASE1_KERNELS, [
+        "qkv_bwd/spatial-long", "qkv_bwd/spatial-short", "qkv_bwd/temporal",
+        "linear_residual_bwd/attn-out", "linear_residual_bwd/temporal-out",
+        "ln_linear/qkv", "ln_linear/temporal-qkv", "linear_residual/attn-out",
+        "linear_residual/temporal-out",
+        "attention/spatial-long", "attention/spatial-short", "attention/temporal",
+        "attention_bwd/spatial-long", "attention_bwd/spatial-short", "attention_bwd/temporal",
+        "ln_linear/ff", "linear_residual/ff", "ff_bwd/ff", "gn_silu_conv3/emb",
+        "gn_silu_conv3/res", "conv3/emb-dx", "conv3/res-dx", "conv3/res-y"])
+    if missing:
+        faults.append(f"kernels or call sites never launched on the phase-1 path: {missing}")
+    if faults:
+        raise SystemExit("phase 1: " + "; ".join(faults))
+    del frozen
+    trainer.apply = apply
+    prof = _device_profile("phase1_optimizer_step", lambda: [
+        trainer(batch, draw_train(engine, tcfg, batch, gen)) for _ in range(k)])
+    OUT.mkdir(exist_ok=True)
+    (OUT / "phase1.json").write_text(json.dumps(dict(
+        card=CARD, micro_steps=steps, s_per_micro_step=s_micro, s_per_optimizer_step=s_opt,
+        optimizer_share=opt_share, peak_gib=peak, launches=sites, profile=prof), indent=1))
+    del engine, trainer
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -817,15 +1215,20 @@ def main():
     rows = phase("kernels", kernel_checks)
     sample = phase("slice", slice_run, args.seed, args.profile)
     train = phase("train", train_run, args.seed)
+    gc.collect()  # the phase-2 engine and trainer, before the phase-1 ones
+    torch.cuda.empty_cache()
+    phase1 = phase("phase1", phase1_run, args.seed)
 
     kernels = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         timed = mine[0]  # the first (largest) main-path shape of the kernel
-        by_path = {"sample": sample.get(name, 0), "train": train.get(name, 0)}
+        by_path = {"sample": sample.get(name, 0), "train": train.get(name, 0),
+                   "phase1": phase1.get(name, 0)}
+        path = ("sample" if name in SAMPLE_KERNELS else
+                "train" if name in TRAIN_KERNELS else "phase1")
         kernels.append(dict(
-            name=name, **meta,
-            launches=by_path["sample"] if name in SAMPLE_KERNELS else by_path["train"],
+            name=name, **meta, launches=by_path[path],
             launches_by_path=by_path, max_abs_err=max(r["max_abs_err"] for r in mine),
             rel_err=max(r["rel_err"] for r in mine), shape=timed["shape"], ms=timed["ms"],
             plain_ms=timed["plain_ms"], bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],

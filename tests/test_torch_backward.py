@@ -14,7 +14,17 @@ max|port - JAX| / max|JAX| per output:
   the same chain written with erf GELU in jnp;
 - ``temporal_conv3`` (``_conv3_kernel`` for dx) against ``conv3_vjp``: 1e-4;
 - ``fused_gn_silu_conv3_emb`` / ``_res`` (recompute + conv VJP) against the
-  port's K4 Functions, every input's gradient: 1e-4.
+  port's K4 Functions, every input's gradient: 1e-4;
+- ``fused_ln_qkv`` (``_qkv_bwd_kernel``) at c = 64 over one token tile and
+  over three, against the port's K2 split Function and against
+  ``fused_ln_qkv_bwd_plain``: 1e-4, fp32 math summed in another order (the
+  kernel accumulates tile by tile);
+- ``fused_temporal_self_attn`` (``_bwd_kernel``) on x zero-padded from t =
+  25 to 32 with ``valid_t = 25`` and a zero cotangent on the padded rows, as
+  the JAX UNet runs it, against the port's K2 + K1 + K3 chain at t = 25 and
+  against ``fused_temporal_self_attn_bwd_plain``: dx on the real frames and
+  all eight parameter grads, 1e-4;
+- K3's backward against ``jax.vjp`` of ``o @ wo + bo + x``: 1e-4.
 """
 
 import numpy as np
@@ -26,12 +36,18 @@ import jax.numpy as jnp
 
 from vista_tpu.ops.flash_attention import flash_attention_packed
 from vista_tpu.ops.fused_ff import fused_geglu_ff as jax_ff
+from vista_tpu.ops.fused_qkv import fused_ln_qkv as jax_qkv
+from vista_tpu.ops.fused_temporal_attn import fused_temporal_self_attn as jax_temporal
 from vista_tpu.ops.temporal_conv import (fused_gn_silu_conv3_emb as jax_emb,
                                          fused_gn_silu_conv3_res as jax_res,
                                          temporal_conv3)
 from vista_tpu.ops.tiny_attention import tiny_attention_packed
 from vista_tpu_torch.ops.attention import attention_packed
 from vista_tpu_torch.ops.fused_ff import fused_geglu_ff
+from vista_tpu_torch.ops.fused_qkv import fused_ln_qkv, fused_ln_qkv_bwd_plain
+from vista_tpu_torch.ops.fused_temporal_attn import (fused_temporal_self_attn,
+                                                     fused_temporal_self_attn_bwd_plain)
+from vista_tpu_torch.ops.linear import linear_residual
 from vista_tpu_torch.ops.temporal_conv import (conv3_vjp, fused_gn_silu_conv3_emb,
                                                fused_gn_silu_conv3_res)
 
@@ -133,6 +149,76 @@ def test_gn_silu_conv3_vjp_matches_jax(epilogue):
     ref_out, ref = _jax_grads(jfn, (x, scale, shift, w, b, *extra), gy)
     out, got = _port_grads(tfn, (x, scale, shift, _torch_w(w), b, *extra), gy)
     got[3] = got[3][..., 0, 0].transpose(2, 1, 0)
+    assert _rel(out, ref_out) <= 1e-4
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 1e-4
+
+
+def _lin(w):
+    """JAX (in, out) <-> torch Linear (out, in)."""
+    return np.ascontiguousarray(w.T)
+
+
+def _ln_params(f32, c):
+    return 1 + f32(c, s=0.1), f32(c, s=0.1)
+
+
+@pytest.mark.parametrize("rows", [64, 96])  # one token tile of 64; three of 32
+def test_fused_ln_qkv_backward_matches_jax(rows):
+    c = inner = 64
+    rng = np.random.default_rng(rows)
+    f32 = lambda *shape, s=1.0: (rng.standard_normal(shape) * s).astype(np.float32)
+    x = f32(2, rows // 2, c)
+    ln_s, ln_b = _ln_params(f32, c)
+    ws = [f32(c, inner, s=c ** -0.5) for _ in range(3)]
+    cots = [f32(2, rows // 2, inner) for _ in range(3)]
+    ref_out, vjp = jax.vjp(jax_qkv, *map(jnp.asarray, (x, ln_s, ln_b, *ws)))
+    ref = vjp(tuple(map(jnp.asarray, cots)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, ln_s, ln_b, *map(_lin, ws))]
+    out = fused_ln_qkv(*ts)
+    got = torch.autograd.grad(out, ts, [torch.from_numpy(g) for g in cots])
+    for o, r in zip(out, ref_out):
+        assert _rel(o.detach().numpy(), r) <= 1e-4
+    plain = fused_ln_qkv_bwd_plain(*(t.detach() for t in ts), *map(torch.from_numpy, cots))
+    for grads in (got, plain):
+        for i, (g, r) in enumerate(zip(grads, ref)):
+            g = g.numpy().T if i >= 3 else g.numpy()
+            assert _rel(g, r) <= 1e-4, i
+
+
+def test_fused_temporal_self_attn_backward_matches_jax():
+    rows, t, t_pad, heads = 6, 25, 32, 2
+    c = inner = heads * 64
+    rng = np.random.default_rng(12)
+    f32 = lambda *shape, s=1.0: (rng.standard_normal(shape) * s).astype(np.float32)
+    x, cot = f32(rows, t, c), f32(rows, t, c)
+    ln_s, ln_b = _ln_params(f32, c)
+    wq, wk, wv, wo = (f32(c, inner, s=c ** -0.5) for _ in range(4))
+    bo = f32(c, s=0.1)
+    pad = ((0, 0), (0, t_pad - t), (0, 0))
+    ref_out, ref = _jax_grads(
+        lambda x, *p: jax_temporal(x, *p, heads, t), (np.pad(x, pad), ln_s, ln_b, wq, wk, wv,
+                                                      wo, bo), np.pad(cot, pad))
+    args = (x, ln_s, ln_b, _lin(wq), _lin(wk), _lin(wv), _lin(wo), bo)
+    out, got = _port_grads(lambda x, *p: fused_temporal_self_attn(x, *p, heads), args, cot)
+    plain = [g.numpy() for g in fused_temporal_self_attn_bwd_plain(
+        *map(torch.from_numpy, args), heads, torch.from_numpy(cot))]
+    assert _rel(out, ref_out[:, :t]) <= 1e-4
+    for grads in (got, plain):
+        assert _rel(grads[0], ref[0][:, :t]) <= 1e-4
+        for i in range(1, 8):
+            g = grads[i].T if 3 <= i <= 6 else grads[i]
+            assert _rel(g, ref[i]) <= 1e-4, i
+
+
+def test_linear_residual_backward_matches_jax():
+    rng = np.random.default_rng(13)
+    f32 = lambda *shape, s=1.0: (rng.standard_normal(shape) * s).astype(np.float32)
+    o, x, cot = f32(3, 40, 96), f32(3, 40, 64), f32(3, 40, 64)
+    wo, bo = f32(96, 64, s=96 ** -0.5), f32(64, s=0.1)
+    ref_out, ref = _jax_grads(lambda o, wo, bo, x: o @ wo + bo + x, (o, wo, bo, x), cot)
+    out, got = _port_grads(linear_residual, (o, _lin(wo), bo, x), cot)
+    got[1] = got[1].T
     assert _rel(out, ref_out) <= 1e-4
     for g, r in zip(got, ref):
         assert _rel(g, r) <= 1e-4

@@ -41,27 +41,29 @@ PHASE2_UCG_KEYS = ("cond_frames_without_noise", "cond_frames", "command", "traje
                    "speed", "angle", "goal")
 
 
-def fp32_cfgs(ucg_rate, lora):
-    """The tiny JAX and port engine configs, fp32, action control (and
-    LoRA), phase-2 ucg keys."""
+def fp32_cfgs(ucg_rate, lora, action=True):
+    """The tiny JAX and port engine configs, fp32, LoRA or not; with
+    ``action``, action control and the phase-2 ucg keys, else neither (the
+    phase-1 recipe's default keys)."""
     out = []
     for base in (JEngineConfig().tiny(), EngineConfig().tiny()):
         cond = base.conditioner
+        keys = dict(ucg_keys=PHASE2_UCG_KEYS) if action else {}
         cond = dataclasses.replace(
-            cond, action_control=True, ucg_rate=ucg_rate, ucg_keys=PHASE2_UCG_KEYS,
+            cond, action_control=action, ucg_rate=ucg_rate, **keys,
             clip=dataclasses.replace(cond.clip, dtype="float32"),
             vae=dataclasses.replace(cond.vae, dtype="float32"))
         out.append(dataclasses.replace(
             base, conditioner=cond, vae=dataclasses.replace(base.vae, dtype="float32"),
             unet=dataclasses.replace(base.unet, dtype="float32", add_lora=lora,
-                                     action_control=True)))
+                                     action_control=action)))
     return out
 
 
-def build(ucg_rate=0.0, lora=False, seed=20):
+def build(ucg_rate=0.0, lora=False, seed=20, action=True):
     """JAX engine + random params (the conditioner's encoder tied to the
     first stage's), and the port engine loaded from their export."""
-    jcfg, pcfg = fp32_cfgs(ucg_rate, lora)
+    jcfg, pcfg = fp32_cfgs(ucg_rate, lora, action)
     jeng = JVistaEngine(jcfg)
     shapes = jax.eval_shape(lambda: jeng.init_params(jax.random.key(0), H, W))
     params = random_params(shapes, seed)

@@ -5,7 +5,8 @@ lengths that are not tile multiples, s_q != s_k, a valid-key length).
 Needs an NVIDIA card and ``nvcc``: marked ``cuda`` and skipped without a
 card. On the card: ``python3 -m pytest tests/test_torch_cuda.py -q``.
 Bound: max|kernel - plain| <= 1e-2 * max|plain|, the plain version in fp32
-on the same bf16 inputs (bf16 operands and outputs, fp32 accumulation).
+on the same bf16 inputs (bf16 operands and outputs, fp32 accumulation), with
+TF32 off for its products and convolutions.
 """
 
 import pytest
@@ -15,8 +16,12 @@ from vista_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plain,
                                            attention_forward, attention_packed,
                                            attention_plain)
 from vista_tpu_torch.ops.fused_ff import ff_bwd, ff_bwd_plain
-from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_plain,
-                                        ln_linear, ln_linear_plain)
+from vista_tpu_torch.ops.fused_temporal_attn import (fused_temporal_self_attn,
+                                                     fused_temporal_self_attn_bwd_plain)
+from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_bwd,
+                                        linear_residual_bwd_plain, linear_residual_plain,
+                                        ln_linear, ln_linear_plain, ln_linear_split_bwd,
+                                        ln_linear_split_bwd_plain)
 from vista_tpu_torch.ops.norms import layer_norm_kernel, layer_norm_plain
 from vista_tpu_torch.ops.temporal_conv import (conv3, conv3_plain, gn_silu_conv3,
                                                gn_silu_conv3_plain)
@@ -34,7 +39,10 @@ def rnd():
     def draw(*shape, std=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
 
-    return draw
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield draw
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _f32(*ts):
@@ -137,6 +145,43 @@ def test_conv3(rnd, cout, with_bias):
     w = rnd(cout, cin, 3, 1, 1, std=(3 * cin) ** -0.5)
     b = rnd(cout, std=0.1, dtype=torch.float32) if with_bias else None
     _check(conv3(x, w, b, t), conv3_plain(*_f32(x, w, b), t))
+
+
+@pytest.mark.parametrize("shape,splits", [((300, 96), 3), ((5, 25, 64), 3), ((129, 64), 1)])
+def test_ln_linear_split_bwd(rnd, shape, splits):
+    c = shape[-1]
+    x, g = rnd(*shape, std=2.0), rnd(splits, *shape)
+    w = rnd(splits * c, c, std=c ** -0.5)
+    lw, lb = 1 + rnd(c, std=0.1, dtype=torch.float32), rnd(c, std=0.1, dtype=torch.float32)
+    got = ln_linear_split_bwd(x, lw, lb, w, g)
+    ref = ln_linear_split_bwd_plain(*_f32(x, lw, lb, w, g))
+    for t, r in zip(got, ref):
+        _check(t, r)
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 96, 64), (129, 64, 320)])
+def test_linear_residual_bwd(rnd, m, k, n):
+    a, w, g = rnd(m, k), rnd(n, k, std=k ** -0.5), rnd(m, n)
+    for t, r in zip(linear_residual_bwd(a, w, g), linear_residual_bwd_plain(*_f32(a, w, g))):
+        _check(t, r)
+
+
+def test_temporal_self_attn_grads(rnd):
+    """The whole chain (K2 split, K1, K3 and their backward kernels) under
+    autograd against the plain VJP of the TPU kernel's math."""
+    rows, t, heads = 40, 25, 2
+    c = heads * 64
+    x, gy = rnd(rows, t, c), rnd(rows, t, c)
+    lw, lb = 1 + rnd(c, std=0.1, dtype=torch.float32), rnd(c, std=0.1, dtype=torch.float32)
+    ws = [rnd(c, c, std=c ** -0.5) for _ in range(4)]
+    bo = rnd(c, std=0.1, dtype=torch.float32)
+    args = [a.requires_grad_() for a in (x, lw, lb, *ws, bo)]
+    out = fused_temporal_self_attn(*args, heads)
+    got = torch.autograd.grad(out, args, gy)
+    ref = fused_temporal_self_attn_bwd_plain(*_f32(*(a.detach() for a in args)), heads,
+                                             gy.float())
+    for g, r in zip(got, ref):
+        _check(g, r)
 
 
 def test_cuda_tensors_never_take_the_plain_path(rnd):

@@ -10,6 +10,8 @@
 - The port imports no JAX: checked in a fresh interpreter.
 - The port's config dataclasses have the JAX ones' fields and defaults,
   minus the TPU-only fields.
+- The phase-1 ``Trainer``'s fp32 state for the full-width UNet (masters,
+  Adam moments, EMA, the accumulation buffer), on ``meta``.
 """
 
 import dataclasses
@@ -106,6 +108,26 @@ def test_full_width_encoder_and_clip_keys_and_shapes():
     _audit(tower, ti.clip_key_map(ccfg), _flat(shapes))
     n = sum(p.numel() for p in tower.parameters())
     assert 6.0e8 < n < 6.5e8, n
+
+
+def test_phase1_trainer_state_bytes_on_meta():
+    """Every UNet weight trains under ``slow_spatial``; with ``accum_steps =
+    2`` the Trainer holds five fp32 copies of each (master, mu, nu, EMA,
+    the running mean of the micro-steps' gradients) and nothing more:
+    about 30.5 GB for the 1.527 B parameters."""
+    import types
+
+    with torch.device("meta"):
+        unet = VideoUNet(VideoUNetConfig())
+    trainer = training.Trainer(types.SimpleNamespace(unet=unet), training.TrainConfig(
+        policy="slow_spatial", accum_steps=2))
+    n = sum(p.numel() for p in unet.parameters())
+    assert len(trainer.params) == len(list(unet.parameters()))
+    state = (trainer.master, trainer.mu, trainer.nu, trainer.ema, trainer.acc)
+    assert all(t.dtype == torch.float32 for d in state for t in d.values())
+    nbytes = sum(t.numel() * t.element_size() for d in state for t in d.values())
+    assert nbytes == 5 * 4 * n
+    assert 30.0e9 < nbytes < 31.0e9, nbytes
 
 
 def test_engine_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):

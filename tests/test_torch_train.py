@@ -110,7 +110,7 @@ def step():
     draws = _jax_draws(jeng, batch, key, jcfg)
     loss, aux = trainer.loss_and_grads(tb, draws)
     port_grads = trainer.grads()
-    norm = trainer.apply(port_grads)
+    norm = trainer.apply()
     clip = min(1.0, pcfg.grad_clip / norm)
     export = lambda tree: ti.export_key_map(tree, ti.unet_key_map(jeng.cfg.unet), UNET_PREFIX)
     return dict(metrics=metrics, loss=float(loss), aux=aux, trainer=trainer,

@@ -13,8 +13,9 @@
 //      interleaved, as in K2) and dhg = dy W2 in a second main loop, then
 //      hg = a * gelu(g), da = dhg * gelu(g), dg = dhg * a * gelu'(g);
 //      writes hg (M, 4c) and dH = [da | dg] (M, 8c), bf16;
-//   2. gemm_f32: dxn = dH W1 (fp32, M x c), the product feeding the LN
-//      backward, which needs whole rows;
+//   2. dxn = dH W1 (fp32, M x c), the product feeding the LN backward,
+//      which needs whole rows: vk_seg_gemm of csrc/qkv_bwd.cu with one
+//      segment (the caller launches it);
 //   3. ln_bwd: one warp per row recomputes mean and rstd, then
 //      dx = rstd (dxn*gamma - mean(dxn*gamma) - xhat mean(dxn*gamma*xhat))
 //      + dy (the residual), and per-block partial column sums of dxn * xhat
@@ -100,42 +101,6 @@ ff_bwd_dh_kernel(const bf16* __restrict__ xn, const bf16* __restrict__ dy,
         *reinterpret_cast<uint32_t*>(dh + (size_t)m * 2 * N + o) = pack_bf16(da[0], da[1]);
         *reinterpret_cast<uint32_t*>(dh + (size_t)m * 2 * N + N + o) =
             pack_bf16(dg[0], dg[1]);
-      }
-    }
-}
-
-// 2. out (M, N) fp32 = A (M, K) B (N, K)^T; K % 32 == 0, N even.
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_f32_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
-                float* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) GemmSmem sm;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  auto load_a = [&](int row, int k) -> uint4 {
-    const int m = m0 + row;
-    if (m >= M) return make_uint4(0, 0, 0, 0);
-    return *reinterpret_cast<const uint4*>(a + (size_t)m * K + k);
-  };
-  auto load_b = [&](int row, int k) -> uint4 {
-    const int n = n0 + row;
-    if (n >= N) return make_uint4(0, 0, 0, 0);
-    return *reinterpret_cast<const uint4*>(b + (size_t)n * K + k);
-  };
-  float acc[4][4][4];
-  gemm_mainloop(K, load_a, load_b, sm, acc);
-  const int g = lane >> 2, t = lane & 3, wm = warp >> 2, wn = warp & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 64 + i * 16 + g + half * 8;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn * 32 + j * 8 + t * 2;
-        if (n >= N) continue;
-        *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
-            make_float2(acc[i][j][half * 2], acc[i][j][half * 2 + 1]);
       }
     }
 }
@@ -347,15 +312,6 @@ extern "C" int vk_ff_bwd_dh(const void* xn, const void* dy, const void* w1,
   vk::ff_bwd_dh_kernel<<<grid, vk::GEMM_THREADS, 0, (cudaStream_t)stream>>>(
       (const bf16*)xn, (const bf16*)dy, (const bf16*)w1, (const bf16*)w2t,
       (const float*)b1, (bf16*)hg, (bf16*)dh, M, C, N);
-  return (int)cudaGetLastError();
-}
-
-// 2. out (M, N) fp32 = a (M, K) b (N, K)^T. K % 32 == 0, N even.
-extern "C" int vk_gemm_f32(const void* a, const void* b, void* out, int M,
-                           int K, int N, void* stream) {
-  dim3 grid((M + vk::BM - 1) / vk::BM, (N + vk::BN - 1) / vk::BN);
-  vk::gemm_f32_kernel<<<grid, vk::GEMM_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)a, (const bf16*)b, (float*)out, M, K, N);
   return (int)cudaGetLastError();
 }
 

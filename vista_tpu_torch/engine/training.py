@@ -15,11 +15,20 @@
   the compute dtype (the JAX package keeps fp32 parameters and computes in
   bf16); the EMA shadows the masters.
 
+- Gradient accumulation (``accum_steps = k > 1``) follows ``optax.MultiSteps``
+  around that chain, as the JAX package composes them: each call is one
+  micro-step whose gradients join a running mean in one fp32 buffer per
+  trained tensor (``acc += (g - acc) / n``); the chain runs on the mean on
+  every k-th call only. Adam's bias correction and the schedule count the
+  applied updates (:attr:`Trainer.updates`); ``Trainer.step`` and the EMA
+  count micro-steps, so on a call that applies nothing the EMA still moves
+  toward the unchanged parameters.
+
 Every random draw of a step (:class:`TrainDraws`) is an argument:
 :func:`draw_train` makes one from a ``torch.Generator``, and the tests hand
-in the JAX package's draws. The reported ``grad_norm`` is over the leaves
-that train (the JAX package's metric also counts the frozen leaves' grads,
-which the port never computes).
+in the JAX package's draws. The reported ``grad_norm`` is the micro-batch's
+own, over the leaves that train (the JAX package's metric also counts the
+frozen leaves' grads, which the port never computes).
 """
 
 from __future__ import annotations
@@ -95,15 +104,16 @@ def draw_train(engine, cfg: TrainConfig, batch: Mapping[str, torch.Tensor],
 
 
 class Trainer:
-    """``trainer(batch, draws) -> metrics``: one optimizer step of the UNet.
+    """``trainer(batch, draws) -> metrics``: one micro-step of the UNet's
+    optimizer (one optimizer step when ``accum_steps`` is 1).
 
     batch: ``frames`` ``(b, t, 3, H, W)`` pixels in [-1, 1]; ``fps_id``,
     ``motion_bucket_id``, ``cond_aug`` ``(b,)``; the optional action keys.
     """
 
     def __init__(self, engine, cfg: TrainConfig):
-        if cfg.accum_steps != 1:
-            raise NotImplementedError("gradient accumulation is not ported")
+        if cfg.accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {cfg.accum_steps}")
         self.engine, self.cfg = engine, cfg
         self.schedule = lambda_linear(warm_up_steps=cfg.warmup_steps)
         params = dict(engine.unet.named_parameters())
@@ -115,7 +125,11 @@ class Trainer:
         self.mu = {n: torch.zeros_like(m) for n, m in self.master.items()}
         self.nu = {n: torch.zeros_like(m) for n, m in self.master.items()}
         self.ema = {n: m.clone() for n, m in self.master.items()}
-        self.step = 0
+        # the running mean of the micro-steps' gradients (accumulation only)
+        self.acc = {n: torch.zeros_like(m) for n, m in self.master.items()} \
+            if cfg.accum_steps > 1 else None
+        self.step = 0     # micro-steps: the EMA's count
+        self.updates = 0  # applied optimizer updates: Adam's and the schedule's count
 
     def loss_and_grads(self, batch: Mapping[str, torch.Tensor], draws: TrainDraws):
         """Forward and backward; the gradients land on every UNet parameter
@@ -137,18 +151,55 @@ class Trainer:
         loss.backward()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
+    def _grad(self, name: str) -> torch.Tensor:
+        """The fp32 gradient of a trained tensor from its ``.grad`` (zero
+        where the step did not reach it, as the k projection of a one-token
+        cross-attention)."""
+        g = self.params[name].grad
+        return g.float() if g is not None else torch.zeros_like(self.master[name])
+
+    def grads(self) -> Dict[str, torch.Tensor]:
+        """fp32 copies of the current gradients of the leaves that train, for
+        inspection (a step casts them one tensor at a time)."""
+        return {n: self._grad(n) for n in self.params}
+
+    @staticmethod
+    def _global_norm(tensors) -> float:
+        return float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors])))  # one sync
+
     @torch.no_grad()
-    def apply(self, grads: Dict[str, torch.Tensor]) -> float:
-        """One optimizer step from fp32 ``grads`` of the leaves that train;
-        returns their global norm."""
+    def apply(self) -> float:
+        """One micro-step from the ``.grad`` of each leaf that trains, cast to
+        fp32 tensor by tensor and then dropped. Returns the micro-batch's
+        gradient norm."""
         cfg = self.cfg
-        norm = float(torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g) for g in grads.values()])))  # one host sync
+        norm = self._global_norm([p.grad for p in self.params.values() if p.grad is not None])
+        self.step += 1
+        if self.acc is not None:
+            n_acc = (self.step - 1) % cfg.accum_steps + 1
+            for n, acc in self.acc.items():
+                acc.add_((self._grad(n) - acc) / n_acc)
+                self.params[n].grad = None
+            if n_acc == cfg.accum_steps:
+                self._update(lambda n: self.acc[n], self._global_norm(self.acc.values()))
+                for acc in self.acc.values():
+                    acc.zero_()
+        else:
+            self._update(self._grad, norm)
+            for p in self.params.values():
+                p.grad = None
+        ema_update(self.ema, self.master, self.step, cfg.ema_decay)
+        return norm
+
+    def _update(self, grad, norm: float) -> None:
+        """The inner chain: clip -> Adam -> decay -> multiplier -> schedule."""
+        cfg = self.cfg
         clip = 1.0 if norm < cfg.grad_clip else cfg.grad_clip / norm
-        count = self.step + 1
-        rate = -cfg.learning_rate * self.schedule(self.step)
+        count = self.updates + 1
+        rate = -cfg.learning_rate * self.schedule(self.updates)
         for n, master in self.master.items():
-            g = grads[n] * clip
+            g = grad(n) * clip
             self.mu[n].mul_(cfg.beta1).add_(g, alpha=1.0 - cfg.beta1)
             self.nu[n].mul_(cfg.beta2).addcmul_(g, g, value=1.0 - cfg.beta2)
             u = (self.mu[n] / (1.0 - cfg.beta1 ** count)) / (
@@ -156,18 +207,10 @@ class Trainer:
             u = (u + cfg.weight_decay * master) * self.mults[n]
             master.add_(u * rate)
             self.params[n].copy_(master)
-        self.step = count
-        ema_update(self.ema, self.master, self.step, cfg.ema_decay)
-        return norm
-
-    def grads(self) -> Dict[str, torch.Tensor]:
-        """fp32 gradients of the leaves that train (zero where the step did
-        not reach a leaf, as the k adapters of a one-token cross-attention)."""
-        return {n: p.grad.float() if p.grad is not None else torch.zeros_like(self.master[n])
-                for n, p in self.params.items()}
+        self.updates = count
 
     def __call__(self, batch: Mapping[str, torch.Tensor], draws: TrainDraws) -> Dict[str, float]:
         loss, aux = self.loss_and_grads(batch, draws)
-        norm = self.apply(self.grads())
+        norm = self.apply()
         return {"loss": float(loss), "grad_norm": norm,
                 **{k: float(v) for k, v in aux.items()}}

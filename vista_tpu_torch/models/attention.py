@@ -25,7 +25,13 @@ in JAX), K1, then ``to_out`` plus its adapter plus the residual. With
 action control the cross-attention context carries 19 * 128 action
 features past ``context_dim``, added to v through ``v_adapter_action``
 (zero-initialised); the k adapters are dead in the one-token fast path but
-exist, as in the checkpoint. Every path is differentiable under LoRA.
+exist, as in the checkpoint.
+
+Every path is differentiable. Without LoRA (the phase-1 recipe) the
+self-attentions train through the kernels' own backward passes: K2 split's
+(the port of ``_qkv_bwd_kernel``), K1's (``csrc/attention_bwd.cu``) and
+K3's (``ops/linear.py``); the spatial out-projection, which the JAX package
+leaves to XLA, runs on K3 forward and backward too.
 """
 
 from __future__ import annotations
@@ -108,7 +114,7 @@ class CrossAttention(nn.Module):
             o = attention_packed(q, k, v, self.heads, site=site)
             return x + self.to_out(o) + self._lora("out_adapter", o)
         q, k, v = fused_ln_qkv(x, norm.weight, norm.bias, self.to_q.weight,
-                               self.to_k.weight, self.to_v.weight, norm.eps)
+                               self.to_k.weight, self.to_v.weight, norm.eps, bwd_site=site)
         o = attention_packed(q, k, v, self.heads, site=site)
         out = self.to_out[0]
         return linear_residual(o, out.weight, out.bias.float(), x, site="attn-out")

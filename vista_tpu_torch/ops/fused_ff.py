@@ -20,8 +20,9 @@ from __future__ import annotations
 import torch
 
 from vista_tpu_torch.ops import _build
-from vista_tpu_torch.ops.linear import gelu_erf, linear_residual, ln_linear
-from vista_tpu_torch.ops.norms import MAX_C, layer_norm_kernel, layer_norm_plain
+from vista_tpu_torch.ops.linear import (column_sum, gelu_erf, linear_residual, ln_backward,
+                                        ln_linear, seg_gemm, weight_grad)
+from vista_tpu_torch.ops.norms import MAX_C, layer_norm_kernel, layer_norm_plain, ln_bwd_plain
 
 
 def _forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, site):
@@ -41,7 +42,6 @@ def ff_bwd_plain(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5):
     db1, dW2) in the dtypes of (x, ln_w, ln_b, w1, b1, w2), and db2 in fp32."""
     c = x.shape[-1]
     n = w2.shape[1]
-    xf = x.float().reshape(-1, c)
     dyf = dy.float().reshape(-1, c)
     xn = layer_norm_plain(x.reshape(-1, c), ln_w, ln_b, eps).float()
     h = xn @ w1.float().t() + b1.float()
@@ -50,56 +50,18 @@ def ff_bwd_plain(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5):
     hg = (a * ge).to(x.dtype).float()
     dhg = dyf @ w2.float()
     dh = torch.cat([dhg * ge, dhg * a * gelu_erf_grad(g)], dim=1)
-    dxn = dh @ w1.float()
-    mean = xf.mean(-1, keepdim=True)
-    rstd = torch.rsqrt(((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0) + eps)
-    xhat = (xf - mean) * rstd
-    gx = dxn * ln_w.float()
-    dx = rstd * (gx - gx.mean(-1, keepdim=True) - xhat * (gx * xhat).mean(-1, keepdim=True))
-    dx = dx + dyf
-    return (dx.to(x.dtype).reshape(x.shape), (dxn * xhat).sum(0).to(ln_w.dtype),
-            dxn.sum(0).to(ln_b.dtype), (dh.t() @ xn).to(w1.dtype), dh.sum(0).to(b1.dtype),
+    dx, dln_w, dln_b = ln_bwd_plain(x, dh @ w1.float(), ln_w, eps)
+    return ((dx + dyf).to(x.dtype).reshape(x.shape), dln_w.to(ln_w.dtype),
+            dln_b.to(ln_b.dtype), (dh.t() @ xn).to(w1.dtype), dh.sum(0).to(b1.dtype),
             (dyf.t() @ hg).to(w2.dtype), dyf.sum(0))
-
-
-def _splits(m: int, tiles: int):
-    """Row ranges (a multiple of 32 rows each) for a split-K reduction: about
-    four blocks per SM over all splits, at least 256 rows per split."""
-    splits = max(1, min(-(-528 // max(tiles, 1)), m // 256))
-    per = -(-m // splits)
-    per = -(-per // 32) * 32
-    return -(-m // per), per
-
-
-def _sum_splits(part: torch.Tensor, splits: int, shape):
-    out = torch.empty(shape, dtype=torch.float32, device=part.device)
-    _build.launch("vk_sum_splits", part.data_ptr(), out.data_ptr(), splits, out.numel())
-    return out
-
-
-def _wgrad(a: torch.Tensor, b: torch.Tensor):
-    """``a^T b`` over all rows, fp32: a (M, N1), b (M, N2)."""
-    m, n1 = a.shape
-    n2 = b.shape[1]
-    splits, per = _splits(m, -(-n1 // 128) * -(-n2 // 128))
-    part = torch.empty(splits, n1, n2, dtype=torch.float32, device=a.device)
-    _build.launch("vk_wgrad", a.data_ptr(), b.data_ptr(), part.data_ptr(), m, n1, n2,
-                  splits, per)
-    return _sum_splits(part, splits, (n1, n2))
-
-
-def _col_sum(a: torch.Tensor):
-    m, n = a.shape
-    splits, per = _splits(m, -(-n // 256))
-    part = torch.empty(splits, n, dtype=torch.float32, device=a.device)
-    _build.launch("vk_col_sum", a.data_ptr(), part.data_ptr(), m, n, splits, per)
-    return _sum_splits(part, splits, (n,))
 
 
 def ff_bwd(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5, needs=(True,) * 7,
            site: str = "ff"):
     """Gradients of the feed-forward w.r.t. (x, ln_w, ln_b, w1, b1, w2, b2);
-    None where ``needs`` is false. ``csrc/ff_bwd.cu`` on CUDA tensors."""
+    None where ``needs`` is false. CUDA tensors: ``csrc/ff_bwd.cu`` with the
+    helpers of ``ops/linear.py`` (:func:`seg_gemm` for dxn, :func:`ln_backward`,
+    the split-K weight grads and column sums)."""
     if _build.on_cpu(x, dy):
         grads = ff_bwd_plain(x, ln_w, ln_b, w1, b1, w2, dy, eps)
         return tuple(g if need else None for g, need in zip(grads, needs))
@@ -112,9 +74,7 @@ def ff_bwd(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5, needs=(True,) * 7,
     _build.check(dy, "dy", torch.bfloat16, x.shape)
     _build.check(w1, "w1", torch.bfloat16, (2 * n, c))
     _build.check(w2, "w2", torch.bfloat16, (c, n))
-    gamma = ln_w.float().contiguous()
     bias1 = b1.float().contiguous()
-    _build.check(gamma, "ln_w", torch.float32, (c,))
     _build.check(bias1, "b1", torch.float32, (2 * n,))
     dev = x.device
     xn = layer_norm_kernel(x, ln_w, ln_b, eps, site=f"{site}-bwd")
@@ -123,32 +83,23 @@ def ff_bwd(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5, needs=(True,) * 7,
     w2t = w2.t().contiguous()
     _build.launch("vk_ff_bwd_dh", xn.data_ptr(), dy.data_ptr(), w1.data_ptr(),
                   w2t.data_ptr(), bias1.data_ptr(), hg.data_ptr(), dh.data_ptr(), m, c, n)
-    w1t = w1.t().contiguous()
-    dxn = torch.empty(m, c, dtype=torch.float32, device=dev)
-    _build.launch("vk_gemm_f32", dh.data_ptr(), w1t.data_ptr(), dxn.data_ptr(), m, 2 * n, c)
-    del w1t, w2t
+    del w2t
+    dxn = seg_gemm(dh.view(1, m, 2 * n), w1.t().contiguous(), torch.float32)
     want_ln = needs[1] or needs[2]
-    blocks = min(-(-m // 8), 512)
-    dx = torch.empty_like(x)
-    parts = [torch.empty(blocks, c, dtype=torch.float32, device=dev) for _ in range(2)] \
-        if want_ln else [None, None]
-    _build.launch("vk_ln_bwd", x.data_ptr(), dxn.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
-                  dx.data_ptr(), _build.ptr(parts[0]), _build.ptr(parts[1]), m, c, blocks,
-                  float(eps))
+    dx, dln_w, dln_b = ln_backward(x, dxn, ln_w, dy, eps, want_ln)
     del dxn
     out = [dx, None, None, None, None, None, None]
     if want_ln:
-        out[1] = _sum_splits(parts[0], blocks, (c,)).to(ln_w.dtype)
-        out[2] = _sum_splits(parts[1], blocks, (c,)).to(ln_b.dtype)
+        out[1], out[2] = dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype)
     dy2 = dy.reshape(m, c)
     if needs[3]:
-        out[3] = _wgrad(dh, xn.reshape(m, c)).to(w1.dtype)
+        out[3] = weight_grad(dh, xn.reshape(m, c)).to(w1.dtype)
     if needs[4]:
-        out[4] = _col_sum(dh).to(b1.dtype)
+        out[4] = column_sum(dh).to(b1.dtype)
     if needs[5]:
-        out[5] = _wgrad(dy2, hg).to(w2.dtype)
+        out[5] = weight_grad(dy2, hg).to(w2.dtype)
     if needs[6]:
-        out[6] = _col_sum(dy2)
+        out[6] = column_sum(dy2)
     _build.count("ff_bwd", site)
     return tuple(out)
 

@@ -1,10 +1,12 @@
-"""LayerNorm-prologue and residual-epilogue GEMMs: kernels K2 and K3.
+"""LayerNorm-prologue and residual-epilogue GEMMs: kernels K2 and K3, and
+their backward passes.
 
 K2 ``ln_linear`` (``csrc/ln_linear.cu``): ``LN(x) @ W^T`` with fp32
 LayerNorm statistics, and one of two epilogues:
 
 - ``"split"``: the output columns are cut into ``splits`` equal parts,
-  each written as its own contiguous tensor (q, k, v of a self-attention);
+  written as one ``(splits, tokens..., n // splits)`` tensor (q, k, v of a
+  self-attention);
 - ``"geglu"``: ``W`` holds ``[value; gate]`` rows and the kernel writes
   ``(LN(x) W_a^T + b_a) * gelu(LN(x) W_g^T + b_g)`` (exact erf GELU).
 
@@ -16,10 +18,19 @@ the JAX package's row layout ``(tokens..., c)``. On CUDA tensors each
 wrapper launches its kernel (bf16 activations and weights, fp32 norm
 parameters and bias) or raises; on CPU tensors it runs its plain version.
 
-Neither has a backward of its own: inside the differentiable feed-forward
-(``ops/fused_ff.py``) the gradient is ``csrc/ff_bwd.cu``; elsewhere (the
-fused q/k/v of the LoRA-free self-attention, the phase-1 path) a call that
-would need one raises.
+Backward (training), on CUDA tensors hand-written kernels, on CPU tensors
+explicit fp32 formulas:
+
+- K2 ``"split"`` (the fused q/k/v of the LoRA-free self-attentions, phase
+  1): :func:`ln_linear_split_bwd`, replacing the TPU kernel
+  ``_qkv_bwd_kernel`` — xn recomputed by the layer_norm kernel, dxn =
+  Σᵢ gᵢ Wᵢ as one segmented GEMM (``csrc/qkv_bwd.cu``), the LN backward
+  and the split-K weight gradients of ``csrc/ff_bwd.cu``;
+- K3: :func:`linear_residual_bwd` — da = g W (``csrc/qkv_bwd.cu``), dW =
+  gᵀa, db = colsum(g) (``csrc/ff_bwd.cu``), dresidual = g;
+- K2 ``"geglu"`` has no backward of its own: inside the differentiable
+  feed-forward (``ops/fused_ff.py``) the gradient is ``csrc/ff_bwd.cu``,
+  and elsewhere a call that would need one raises.
 """
 
 from __future__ import annotations
@@ -29,21 +40,97 @@ from typing import Optional
 import torch
 
 from vista_tpu_torch.ops import _build
-from vista_tpu_torch.ops.norms import layer_norm_plain
+from vista_tpu_torch.ops.norms import MAX_C, layer_norm_kernel, layer_norm_plain, ln_bwd_plain
 
 _TILE_K = 32  # the kernels' K step
 
 
-def _no_grad_needed(*tensors) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "K2/K3 have no backward outside the feed-forward: the LoRA-free "
-            "(phase-1) training path is not ported")
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def gelu_erf(g: torch.Tensor) -> torch.Tensor:
     return 0.5 * g * (1.0 + torch.erf(g * 0.7071067811865476))
 
+
+# ------------------------------------------------------- split-K reductions
+
+def _splits(m: int, tiles: int):
+    """Row ranges (a multiple of 32 rows each) for a split-K reduction: about
+    four blocks per SM over all splits, at least 256 rows per split."""
+    splits = max(1, min(-(-528 // max(tiles, 1)), m // 256))
+    per = -(-m // splits)
+    per = -(-per // 32) * 32
+    return -(-m // per), per
+
+
+def sum_splits(part: torch.Tensor, splits: int, shape=None, out=None):
+    """``part.sum(0)`` in fp32, in order of the split (``vk_sum_splits``),
+    into ``out`` (a contiguous fp32 tensor) or a new tensor of ``shape``."""
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=part.device)
+    _build.launch("vk_sum_splits", part.data_ptr(), out.data_ptr(), splits, out.numel())
+    return out
+
+
+def weight_grad(a: torch.Tensor, b: torch.Tensor, out=None):
+    """``a^T b`` over all rows in fp32 (``vk_wgrad`` + ``vk_sum_splits``):
+    a (M, N1), b (M, N2) bf16."""
+    m, n1 = a.shape
+    n2 = b.shape[1]
+    splits, per = _splits(m, -(-n1 // 128) * -(-n2 // 128))
+    part = torch.empty(splits, n1, n2, dtype=torch.float32, device=a.device)
+    _build.launch("vk_wgrad", a.data_ptr(), b.data_ptr(), part.data_ptr(), m, n1, n2,
+                  splits, per)
+    return sum_splits(part, splits, (n1, n2), out)
+
+
+def column_sum(a: torch.Tensor):
+    """``a.sum(0)`` of a (M, N) bf16 in fp32 (``vk_col_sum`` + ``vk_sum_splits``)."""
+    m, n = a.shape
+    splits, per = _splits(m, -(-n // 256))
+    part = torch.empty(splits, n, dtype=torch.float32, device=a.device)
+    _build.launch("vk_col_sum", a.data_ptr(), part.data_ptr(), m, n, splits, per)
+    return sum_splits(part, splits, (n,))
+
+
+def ln_backward(x, dxn, ln_w, dres=None, eps=1e-5, want_ln=True):
+    """The gradient through ``LN(x)`` of the fp32 cotangent ``dxn`` (M, c)
+    (``vk_ln_bwd``, one warp per row): dx in x's dtype, plus ``dres`` (the
+    cotangent of a residual of x) when given; with ``want_ln`` also dγ and
+    dβ in fp32, their per-block partials summed in a fixed order. Returns
+    (dx, dγ, dβ), None for the last two unless ``want_ln``."""
+    m, c = dxn.shape
+    gamma = ln_w.float().contiguous()
+    _build.check(gamma, "ln_w", torch.float32, (c,))
+    blocks = min(-(-m // 8), 512)
+    dx = torch.empty_like(x)
+    parts = [torch.empty(blocks, c, dtype=torch.float32, device=x.device) for _ in range(2)] \
+        if want_ln else [None, None]
+    _build.launch("vk_ln_bwd", x.data_ptr(), dxn.data_ptr(), gamma.data_ptr(), _build.ptr(dres),
+                  dx.data_ptr(), _build.ptr(parts[0]), _build.ptr(parts[1]), m, c, blocks,
+                  float(eps))
+    if not want_ln:
+        return dx, None, None
+    return dx, sum_splits(parts[0], blocks, (c,)), sum_splits(parts[1], blocks, (c,))
+
+
+def seg_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype):
+    """``Σ_s a[s] @ b[:, s*k:(s+1)*k]^T`` (``csrc/qkv_bwd.cu``): a (segs, M, k)
+    bf16, b (N, segs * k) bf16; returns (M, N) in fp32 or bf16."""
+    segs, m, k = a.shape
+    n = b.shape[0]
+    if k % _TILE_K or n % 2:
+        raise ValueError(f"seg_gemm needs k % {_TILE_K} == 0 and an even N: {k}, {n}")
+    _build.check(a, "a", torch.bfloat16)
+    _build.check(b, "b", torch.bfloat16, (n, segs * k))
+    out = torch.empty(m, n, dtype=out_dtype, device=a.device)
+    _build.launch("vk_seg_gemm", a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, segs, n,
+                  m * k, int(out_dtype == torch.float32))
+    return out
+
+
+# ------------------------------------------------------------------- K2
 
 def ln_linear_plain(x, ln_w, ln_b, w, bias=None, epilogue="split", splits=1,
                     eps=1e-5):
@@ -57,15 +144,7 @@ def ln_linear_plain(x, ln_w, ln_b, w, bias=None, epilogue="split", splits=1,
     return h.to(x.dtype).unflatten(-1, (splits, -1)).movedim(-2, 0)
 
 
-def ln_linear(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
-              w: torch.Tensor, bias: Optional[torch.Tensor] = None,
-              epilogue: str = "split", splits: int = 1, eps: float = 1e-5,
-              site: str = "qkv") -> torch.Tensor:
-    """``"split"``: returns ``(splits, *x.shape[:-1], n // splits)``;
-    ``"geglu"``: returns ``(*x.shape[:-1], n // 2)``, where ``n = w.shape[0]``."""
-    if epilogue not in ("split", "geglu"):
-        raise ValueError(f"unknown epilogue {epilogue!r}")
-    _no_grad_needed(x, ln_w, ln_b, w, bias)
+def _ln_linear(x, ln_w, ln_b, w, bias, epilogue, splits, eps, site):
     if _build.on_cpu(x, w):
         return ln_linear_plain(x, ln_w, ln_b, w, bias, epilogue, splits, eps)
     lead, k = x.shape[:-1], x.shape[-1]
@@ -98,15 +177,106 @@ def ln_linear(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     return out
 
 
+def ln_linear_split_bwd_plain(x, ln_w, ln_b, w, g, eps=1e-5):
+    """Every gradient of K2 split, explicit fp32 formulas on the forward's
+    rounding of xn: ``g`` is the cotangent of the ``(splits, tokens..., n /
+    splits)`` output. Returns (dx, dγ, dβ, dW) in the dtypes of (x, ln_w,
+    ln_b, w)."""
+    c = x.shape[-1]
+    splits = g.shape[0]
+    # (splits, m, seg) -> (m, splits * seg): the columns of W's rows
+    gm = g.float().reshape(splits, -1, g.shape[-1]).permute(1, 0, 2).reshape(-1, w.shape[0])
+    xn = layer_norm_plain(x.reshape(-1, c), ln_w, ln_b, eps).float()
+    dxn = gm @ w.float()
+    dx, dln_w, dln_b = ln_bwd_plain(x, dxn, ln_w, eps)
+    return (dx.to(x.dtype).reshape(x.shape), dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype),
+            (gm.t() @ xn).to(w.dtype))
+
+
+def ln_linear_split_bwd(x, ln_w, ln_b, w, g, eps=1e-5, needs=(True,) * 4,
+                        site: str = "spatial"):
+    """Gradients of K2 split w.r.t. (x, ln_w, ln_b, w), None where ``needs``
+    is false; the port of ``_qkv_bwd_kernel``. CUDA tensors: the layer_norm
+    kernel (xn), ``vk_seg_gemm`` (dxn, fp32), :func:`ln_backward` (dx, dγ,
+    dβ), ``vk_wgrad`` per split (dW); CPU tensors: the plain version."""
+    if _build.on_cpu(x, g):
+        grads = ln_linear_split_bwd_plain(x, ln_w, ln_b, w, g, eps)
+        return tuple(t if need else None for t, need in zip(grads, needs))
+    c = x.shape[-1]
+    m = x.numel() // c
+    splits, n_w = g.shape[0], w.shape[0]
+    seg = n_w // splits
+    if c % _TILE_K or c > MAX_C or seg % _TILE_K:
+        raise ValueError(f"qkv_bwd needs c % 32 == 0, c <= {MAX_C}, n / splits % 32 == 0: "
+                         f"{c}, {seg}")
+    _build.check(x, "x", torch.bfloat16)
+    _build.check(w, "w", torch.bfloat16, (n_w, c))
+    _build.check(g, "g", torch.bfloat16, (splits, *x.shape[:-1], seg))
+    out = [None, None, None, None]
+    xn = layer_norm_kernel(x, ln_w, ln_b, eps, site=f"{site}-qkv-bwd") \
+        if needs[3] else None
+    g3 = g.view(splits, m, seg)
+    if needs[0] or needs[1] or needs[2]:
+        dxn = seg_gemm(g3, w.t().contiguous(), torch.float32)
+        want_ln = needs[1] or needs[2]
+        out[0], dln_w, dln_b = ln_backward(x, dxn, ln_w, None, eps, want_ln)
+        del dxn
+        if want_ln:
+            out[1], out[2] = dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype)
+    if needs[3]:
+        dw = torch.empty(n_w, c, dtype=torch.float32, device=x.device)
+        xn2 = xn.view(m, c)
+        for i in range(splits):
+            weight_grad(g3[i], xn2, out=dw[i * seg:(i + 1) * seg])
+        out[3] = dw.to(w.dtype)
+    _build.count("qkv_bwd", site)
+    return tuple(out)
+
+
+class _LnLinearSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w, splits, eps, site, bwd_site):
+        ctx.save_for_backward(x, ln_w, ln_b, w)
+        ctx.args = (eps, bwd_site)
+        return _ln_linear(x, ln_w, ln_b, w, None, "split", splits, eps, site)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_w, ln_b, w = ctx.saved_tensors
+        eps, bwd_site = ctx.args
+        grads = ln_linear_split_bwd(x, ln_w, ln_b, w, g.contiguous(), eps,
+                                    ctx.needs_input_grad[:4], bwd_site)
+        return (*grads, None, None, None, None)
+
+
+def ln_linear(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+              w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+              epilogue: str = "split", splits: int = 1, eps: float = 1e-5,
+              site: str = "qkv", bwd_site: str = "spatial") -> torch.Tensor:
+    """``"split"``: returns ``(splits, *x.shape[:-1], n // splits)``;
+    ``"geglu"``: returns ``(*x.shape[:-1], n // 2)``, where ``n = w.shape[0]``.
+    ``"split"`` without a bias is differentiable; its backward counts its
+    launches under ``bwd_site``."""
+    if epilogue not in ("split", "geglu"):
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    if _needs_grad(x, ln_w, ln_b, w, bias):
+        if epilogue == "geglu" or bias is not None:
+            raise NotImplementedError(
+                "K2 with the GEGLU epilogue or a bias has no backward of its own: "
+                "use ops.fused_ff.fused_geglu_ff")
+        return _LnLinearSplit.apply(x.contiguous(), ln_w, ln_b, w, splits, eps, site,
+                                    bwd_site)
+    return _ln_linear(x, ln_w, ln_b, w, bias, epilogue, splits, eps, site)
+
+
+# ------------------------------------------------------------------- K3
+
 def linear_residual_plain(a, w, bias, residual):
     y = torch.matmul(a.float(), w.float().t()) + bias.float()
     return (residual.float() + y).to(residual.dtype)
 
 
-def linear_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                    residual: torch.Tensor, site: str = "ff") -> torch.Tensor:
-    """``residual + a @ w^T + bias``; a ``(..., k)``, residual ``(..., n)``."""
-    _no_grad_needed(a, w, bias, residual)
+def _linear_residual(a, w, bias, residual, site):
     if _build.on_cpu(a, w, residual):
         return linear_residual_plain(a, w, bias, residual)
     k = a.shape[-1]
@@ -123,3 +293,63 @@ def linear_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                   residual.data_ptr(), out.data_ptr(), m, k, n)
     _build.count("linear_residual", site)
     return out
+
+
+def linear_residual_bwd_plain(a, w, g):
+    """da, dW, db of ``residual + a W^T + b`` for the cotangent ``g``,
+    explicit fp32 formulas, in the dtypes of (a, w) and fp32 (db); the
+    residual's gradient is ``g`` itself."""
+    n, k = w.shape
+    gf = g.float().reshape(-1, n)
+    da = (gf @ w.float()).to(a.dtype).reshape(*a.shape)
+    return da, (gf.t() @ a.float().reshape(-1, k)).to(w.dtype), gf.sum(0)
+
+
+def linear_residual_bwd(a, w, g, needs=(True,) * 3, site: str = "attn-out"):
+    """(da, dW, db) of K3, None where ``needs`` is false. CUDA tensors:
+    ``vk_seg_gemm`` (da, bf16), ``vk_wgrad`` (dW) and ``vk_col_sum`` (db);
+    CPU tensors: the plain version."""
+    if _build.on_cpu(a, g):
+        grads = linear_residual_bwd_plain(a, w, g)
+        return tuple(t if need else None for t, need in zip(grads, needs))
+    n, k = w.shape
+    m = a.numel() // k
+    _build.check(a, "a", torch.bfloat16)
+    _build.check(w, "w", torch.bfloat16, (n, k))
+    _build.check(g, "g", torch.bfloat16, (*a.shape[:-1], n))
+    g2 = g.view(m, n)
+    out = [None, None, None]
+    if needs[0]:
+        out[0] = seg_gemm(g2.view(1, m, n), w.t().contiguous(), torch.bfloat16).view(a.shape)
+    if needs[1]:
+        out[1] = weight_grad(g2, a.view(m, k)).to(w.dtype)
+    if needs[2]:
+        out[2] = column_sum(g2)
+    _build.count("linear_residual_bwd", site)
+    return tuple(out)
+
+
+class _LinearResidual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, w, bias, residual, site):
+        ctx.save_for_backward(a, w)
+        ctx.args = (site, bias.dtype)
+        return _linear_residual(a, w, bias, residual, site)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        site, bias_dtype = ctx.args
+        g = g.contiguous()
+        da, dw, db = linear_residual_bwd(a, w, g, ctx.needs_input_grad[:3], site)
+        db = db.to(bias_dtype) if db is not None else None
+        return da, dw, db, g if ctx.needs_input_grad[3] else None, None
+
+
+def linear_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                    residual: torch.Tensor, site: str = "ff") -> torch.Tensor:
+    """``residual + a @ w^T + bias``; a ``(..., k)``, residual ``(..., n)``;
+    differentiable."""
+    if _needs_grad(a, w, bias, residual):
+        return _LinearResidual.apply(a.contiguous(), w, bias, residual.contiguous(), site)
+    return _linear_residual(a, w, bias, residual, site)

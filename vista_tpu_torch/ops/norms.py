@@ -7,7 +7,9 @@ package's backward is an XLA recompute of the formula, so the port's
 backward is autograd through :func:`layer_norm_plain`, on either device.
 
 Under LoRA this is the ``norm1`` of every spatial and temporal
-self-attention (``vista_tpu/models/attention.py`` ``LayerNorm``).
+self-attention (``vista_tpu/models/attention.py`` ``LayerNorm``); the
+backward kernels of the feed-forward and of the fused q/k/v launch it to
+recompute their normalised input.
 """
 
 from __future__ import annotations
@@ -28,6 +30,23 @@ def layer_norm_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
     xn = (xf - mean) * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()
     return xn.to(x.dtype)
+
+
+def ln_bwd_plain(x: torch.Tensor, dxn: torch.Tensor, ln_w: torch.Tensor,
+                 eps: float = 1e-5):
+    """The LayerNorm backward from ``dxn``, the fp32 cotangent of its output,
+    in fp32: returns dx ``(rows, c)``, dγ and dβ. The formulas of the JAX
+    backward kernels (``_qkv_bwd_kernel``, ``_ff_bwd_kernel``) and of
+    ``csrc/ff_bwd.cu``'s ``ln_bwd``."""
+    c = x.shape[-1]
+    xf = x.float().reshape(-1, c)
+    dxn = dxn.reshape(-1, c)
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0) + eps)
+    xhat = (xf - mean) * rstd
+    gx = dxn * ln_w.float()
+    dx = rstd * (gx - gx.mean(-1, keepdim=True) - xhat * (gx * xhat).mean(-1, keepdim=True))
+    return dx, (dxn * xhat).sum(0), dxn.sum(0)
 
 
 def layer_norm_kernel(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
