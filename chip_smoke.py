@@ -116,7 +116,7 @@ PHASE1_KERNELS = TRAIN_KERNELS + ("qkv_bwd", "linear_residual_bwd")
 # and K3's backward alike
 SYMBOLS = {
     "attention": ("vk::attention_kernel<",),
-    "ln_linear": ("vk::ln_linear_kernel",),
+    "ln_linear": ("vk::ln_linear_kernel", "vk::ln_stats_kernel"),
     "linear_residual": ("vk::linear_residual_kernel",),
     "gn_silu_conv3": ("vk::gn_silu_conv3_kernel<true>",),
     "conv3": ("vk::gn_silu_conv3_kernel<false>",),
@@ -164,7 +164,7 @@ def build():
     _build.lib()
     log(f"kernels: {so.name} ({time.perf_counter() - t0:.1f} s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(k in line for k in ("registers", "spill", "error", "wgmma", "Performance")):
             log("  ptxas: " + line.strip())
 
 
@@ -318,6 +318,33 @@ def kernel_checks():
                       2 * m * c * c, 2 * (3 * m * c + c * c),
                       lambda: time_ms(lambda: torch.addmm(b2b, o, wo.t()) + x))
         del x, o
+    # K2 at c = 640 (ds2 rows, 576x1024), and split at ds1 on a residual
+    # stream that is not zero-mean (x + 4, std 1), as the UNet's are.
+    for m, c, shift in [(50 * 2304, 640, 0.0), (50 * 9216, 320, 4.0)]:
+        x = (rnd(m, c, dtype=torch.float32) + shift).to(bf)
+        lw, lb = rnd(c, std=0.2, dtype=torch.float32) + 1, rnd(c, std=0.2, dtype=torch.float32)
+        lwb, lbb = lw.to(bf), lb.to(bf)
+        w = rnd(3 * c, c, std=c ** -0.5)
+        tag = f" x+{shift:g}" if shift else ""
+        ok &= compare("ln_linear", f"split q/k/v ({m},{c})->3x{c}{tag}",
+                      lambda: ln_linear(x, lw, lb, w, None, "split", 3),
+                      lambda: ln_linear_plain(x, lw, lb, w, None, "split", 3),
+                      lambda: ln_linear_plain(*f32(x, lw, lb, w), None, "split", 3), rows,
+                      2 * m * c * 3 * c, 2 * (m * c + 3 * c * c + 3 * m * c),
+                      lambda: time_ms(lambda: F.linear(F.layer_norm(x, (c,), lwb, lbb), w)))
+        del w
+        if not shift:
+            w1, b1 = rnd(8 * c, c, std=c ** -0.5), rnd(8 * c, std=0.1, dtype=torch.float32)
+            b1b = b1.to(bf)
+            ok &= compare("ln_linear", f"geglu ({m},{c})->{4 * c}",
+                          lambda: ln_linear(x, lw, lb, w1, b1, "geglu"),
+                          lambda: ln_linear_plain(x, lw, lb, w1, b1, "geglu"),
+                          lambda: ln_linear_plain(*f32(x, lw, lb, w1, b1), "geglu"), rows,
+                          2 * m * c * 8 * c, 2 * (m * c + 8 * c * c + 4 * m * c),
+                          lambda: time_ms(lambda: F.linear(F.layer_norm(x, (c,), lwb, lbb), w1,
+                                                           b1b)))
+            del w1
+        del x
     # K4 at (50, 9216, 320) and (50, 576, 1280), both epilogues, t = 25.
     for bt, s, c in [(50, 9216, 320), (50, 576, 1280)]:
         x = rnd(bt, s, c)

@@ -66,7 +66,8 @@ def test_attention(rnd, b, s_q, s_k, heads, valid_k):
            attention_plain(*_f32(q, k, v), heads, valid_k))
 
 
-@pytest.mark.parametrize("m,c,splits", [(300, 96, 3), (129, 64, 1)])
+@pytest.mark.parametrize("m,c,splits", [(300, 96, 3), (129, 64, 1), (1000, 320, 3),
+                                         (1000, 1280, 3), (1000, 96, 3)])
 def test_ln_linear_split(rnd, m, c, splits):
     x, w = rnd(m, c), rnd(splits * c, c, std=c ** -0.5)
     lw, lb = 1 + rnd(c, std=0.1, dtype=torch.float32), rnd(c, std=0.1, dtype=torch.float32)
@@ -74,13 +75,26 @@ def test_ln_linear_split(rnd, m, c, splits):
            ln_linear_plain(*_f32(x, lw, lb, w), None, "split", splits))
 
 
-def test_ln_linear_geglu(rnd):
-    m, c = 300, 64
+@pytest.mark.parametrize("m,c", [(300, 64), (1000, 320)])
+def test_ln_linear_geglu(rnd, m, c):
     x, w1 = rnd(m, c), rnd(8 * c, c, std=c ** -0.5)
     lw, lb = 1 + rnd(c, std=0.1, dtype=torch.float32), rnd(c, std=0.1, dtype=torch.float32)
     b1 = rnd(8 * c, std=0.1, dtype=torch.float32)
     _check(ln_linear(x, lw, lb, w1, b1, "geglu"),
            ln_linear_plain(*_f32(x, lw, lb, w1, b1), "geglu"))
+
+
+@pytest.mark.parametrize("epilogue", ["split", "geglu"])
+def test_ln_linear_shifted_mean(rnd, epilogue):
+    """Rows of mean 4 and std 1, as a residual stream is: the kernel's
+    E[x^2] - mean^2 statistic in fp32 holds there."""
+    m, c = 1000, 320
+    x = (rnd(m, c, dtype=torch.float32) + 4.0).to(torch.bfloat16)
+    lw, lb = 1 + rnd(c, std=0.1, dtype=torch.float32), rnd(c, std=0.1, dtype=torch.float32)
+    n_w = 3 * c if epilogue == "split" else 8 * c
+    w, b = rnd(n_w, c, std=c ** -0.5), rnd(n_w, std=0.1, dtype=torch.float32)
+    _check(ln_linear(x, lw, lb, w, b, epilogue, 3),
+           ln_linear_plain(*_f32(x, lw, lb, w, b), epilogue, 3))
 
 
 def test_linear_residual(rnd):

@@ -100,6 +100,32 @@ def test_fused_ln_qkv(c, inner):
             _close(p, r)
 
 
+@pytest.mark.parametrize("op", ["qkv", "geglu_ff"])
+def test_ln_ops_on_shifted_mean_rows(op):
+    """Rows of mean 4 and std 1, as the UNet's residual streams are: the
+    E[x^2] - mean^2 statistic that the port's K2 keeps (in fp32) against the
+    JAX kernels' own (interpret mode) and their references."""
+    rng = np.random.default_rng(7)
+    c = 64
+    x = _rand(rng, 2, 16, c) + np.float32(4.0)
+    ln_s, ln_b = _ln_params(rng, c)
+    if op == "qkv":
+        w = [_rand(rng, c, c, scale=c ** -0.5) for _ in range(3)]
+        port = fused_ln_qkv(_t(x), _t(ln_s), _t(ln_b), *(_t(a.T) for a in w))
+        args = [jnp.asarray(a) for a in (x, ln_s, ln_b, *w)]
+        for ref in (jqkv.fused_ln_qkv(*args), jqkv._xla_reference(*args)):
+            for p, r in zip(port, ref):
+                _close(p, r)
+        return
+    w1, b1 = _rand(rng, c, 8 * c, scale=c ** -0.5), _rand(rng, 8 * c, scale=0.1)
+    w2, b2 = _rand(rng, 4 * c, c, scale=(4 * c) ** -0.5), _rand(rng, c, scale=0.1)
+    port = fused_geglu_ff(_t(x), _t(ln_s), _t(ln_b), _t(w1.T), _t(b1), _t(w2.T), _t(b2))
+    args = [jnp.asarray(a) for a in (x, ln_s, ln_b, w1, b1, w2, b2)]
+    # tanh-GELU on the JAX side, as in test_fused_geglu_ff
+    _close(port, jff.fused_geglu_ff(*args), TANH_GELU_TOL)
+    _close(port, jff._xla_reference(*args), TANH_GELU_TOL)
+
+
 @pytest.mark.parametrize("c", [32, 64])
 def test_fused_geglu_ff(c):
     rng = np.random.default_rng(4)

@@ -43,6 +43,7 @@ from vista_tpu_torch.ops import _build
 from vista_tpu_torch.ops.norms import MAX_C, layer_norm_kernel, layer_norm_plain, ln_bwd_plain
 
 _TILE_K = 32  # the kernels' K step
+_K2_MAX_K = 1984  # K2 stages gamma and beta in shared memory
 
 
 def _needs_grad(*tensors) -> bool:
@@ -150,8 +151,8 @@ def _ln_linear(x, ln_w, ln_b, w, bias, epilogue, splits, eps, site):
     lead, k = x.shape[:-1], x.shape[-1]
     m = x.numel() // k
     n_w = w.shape[0]
-    if k % _TILE_K:
-        raise ValueError(f"K2 needs c % {_TILE_K} == 0, got {k}")
+    if k % _TILE_K or k > _K2_MAX_K:
+        raise ValueError(f"K2 needs c % {_TILE_K} == 0 and c <= {_K2_MAX_K}, got {k}")
     _build.check(x, "x", torch.bfloat16)
     _build.check(w, "w", torch.bfloat16, (n_w, k))
     _build.check(ln_w, "ln_w", torch.float32, (k,))
@@ -170,9 +171,10 @@ def _ln_linear(x, ln_w, ln_b, w, bias, epilogue, splits, eps, site):
         n, seg = n_w, n_w // splits
         out = torch.empty(splits, *lead, seg, dtype=x.dtype, device=x.device)
         mode = 0
+    stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)  # (mean, rstd) per row
     _build.launch("vk_ln_linear", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-                  w.data_ptr(), _build.ptr(bias), out.data_ptr(), m, k, n, mode,
-                  seg, float(eps))
+                  w.data_ptr(), _build.ptr(bias), stats.data_ptr(), out.data_ptr(), m, k, n,
+                  mode, seg, float(eps))
     _build.count("ln_linear", site)
     return out
 
