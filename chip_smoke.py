@@ -88,8 +88,8 @@ KERNELS = {
                  "vista_tpu/ops/tiny_attention.py:201 (_tiny_bwd_kernel); "
                  "vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, softmax backward)"),
     "ff_bwd": dict(
-        route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu with csrc/qkv_bwd.cu (vk_seg_gemm) "
-                             "and csrc/layer_norm.cu",
+        route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu with csrc/qkv_bwd.cu (vk_seg_gemm), "
+                             "csrc/gemm_tma.cuh and csrc/layer_norm.cu",
         replaces="vista_tpu/ops/fused_ff.py:307 (_ff_bwd_kernel); "
                  "vista_tpu/ops/fused_ff.py:434 (_ff_bwd_wide_kernel)"),
     "conv3": dict(
@@ -97,13 +97,14 @@ KERNELS = {
         replaces="vista_tpu/ops/temporal_conv.py:155 (_conv3_kernel)"),
     "qkv_bwd": dict(
         route="cuda", source="vista_tpu_torch/csrc/qkv_bwd.cu (vk_seg_gemm) with "
-                             "csrc/ff_bwd.cu (vk_ln_bwd, vk_wgrad, vk_sum_splits) and "
-                             "csrc/layer_norm.cu",
+                             "csrc/ff_bwd.cu (vk_ln_bwd, vk_wgrad, vk_sum_splits), "
+                             "csrc/gemm_tma.cuh and csrc/layer_norm.cu",
         replaces="vista_tpu/ops/fused_qkv.py:224 (_qkv_bwd_kernel); "
                  "vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, LN + q/k/v backward)"),
     "linear_residual_bwd": dict(
         route="cuda", source="vista_tpu_torch/csrc/qkv_bwd.cu (vk_seg_gemm) with "
-                             "csrc/ff_bwd.cu (vk_wgrad, vk_col_sum, vk_sum_splits)",
+                             "csrc/ff_bwd.cu (vk_wgrad, vk_col_sum, vk_sum_splits) and "
+                             "csrc/gemm_tma.cuh",
         replaces="vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, out-projection "
                  "backward: do, dWo, dbo)"),
 }
@@ -112,8 +113,9 @@ TRAIN_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3",
                  "layer_norm", "attention_bwd", "ff_bwd", "conv3")
 PHASE1_KERNELS = TRAIN_KERNELS + ("qkv_bwd", "linear_residual_bwd")
 # the demangled names of each group's device functions, for the profiles;
-# seg_gemm, the LN backward and the split-K reductions serve ff_bwd, qkv_bwd
-# and K3's backward alike
+# vk_wgrad, seg_gemm, the LN backward and the split-K reductions serve
+# ff_bwd, qkv_bwd and K3's backward alike. Every __global__ function of
+# vista_tpu_torch/csrc/ belongs to one group (tests/test_torch_gemm_plan.py).
 SYMBOLS = {
     "attention": ("vk::attention_kernel<",),
     "ln_linear": ("vk::ln_linear_kernel", "vk::ln_stats_kernel"),
@@ -123,9 +125,10 @@ SYMBOLS = {
     "layer_norm": ("vk::layer_norm_kernel",),
     "attention_bwd": ("vk::attn_bwd_",),
     "ff_bwd_dh": ("vk::ff_bwd_dh_kernel",),
-    "seg_gemm (dxn of ff_bwd, qkv_bwd; K3 da)": ("vk::seg_gemm_kernel",),
-    "ln_bwd + split-K sums": ("vk::ln_bwd_kernel", "vk::wgrad_kernel", "vk::col_sum_kernel",
-                              "vk::sum_splits_kernel"),
+    "seg_gemm (dxn of ff_bwd, qkv_bwd; K3 da)": ("vk::seg_gemm_tma_kernel",),
+    "vk_wgrad (split-K dW of ff_bwd, qkv_bwd, K3)": ("vk::wgrad_tma_kernel",),
+    "ln_bwd + col sums + split sums": ("vk::ln_bwd_kernel", "vk::col_sum_kernel",
+                                       "vk::sum_splits_kernel"),
 }
 
 
@@ -419,7 +422,8 @@ def kernel_checks():
                       lambda: ff_bwd(x, lw, lb, w1, b1, w2, dy),
                       lambda: ff_bwd_plain(x, lw, lb, w1, b1, w2, dy),
                       lambda: ff_bwd_plain(*f32(x, lw, lb, w1, b1, w2, dy)), rows,
-                      64 * m * c * c, 2 * (3 * m * c + 2 * 12 * c * c), reps=3)
+                      64 * m * c * c, 2 * (3 * m * c + 2 * 12 * c * c),
+                      lambda: ff_composite_bwd_ms(x, lw, lb, w1, b1, w2), reps=3)
         del x, dy
     for bt, s, c in [(25, 2880, 320), (25, 720, 640)]:
         gy = rnd(bt, s, c)
@@ -434,6 +438,7 @@ def kernel_checks():
                       lambda: time_ms(lambda: F.conv3d(g5, wt, padding=(1, 0, 0))))
         del gy, g5
     ok &= phase1_kernel_checks(rnd, f32, rows)
+    ok &= primitive_checks(rnd, rows)
     OUT.mkdir(exist_ok=True)
     (OUT / "kernel_checks.json").write_text(json.dumps(dict(card=CARD, rows=rows), indent=1))
     if not ok:
@@ -535,8 +540,74 @@ def phase1_kernel_checks(rnd, f32, rows):
                   lambda: ff_bwd(x, lw, lb, w1, b1, w2, dy),
                   lambda: ff_bwd_plain(x, lw, lb, w1, b1, w2, dy),
                   lambda: ff_bwd_plain(*f32(x, lw, lb, w1, b1, w2, dy)), rows,
-                  64 * m * c * c, 2 * (3 * m * c + 2 * 12 * c * c), reps=3)
+                  64 * m * c * c, 2 * (3 * m * c + 2 * 12 * c * c),
+                  lambda: ff_composite_bwd_ms(x, lw, lb, w1, b1, w2), reps=3)
     del x, dy
+    torch.cuda.empty_cache()
+    return ok
+
+
+def ff_composite_bwd_ms(x, lw, lb, w1, b1, w2):
+    """ff_bwd's library column: autograd of F.layer_norm -> F.linear ->
+    chunk / erf GELU -> F.linear + residual in bf16 (``composite_bwd_ms``)."""
+    c = x.shape[-1]
+    b2 = torch.zeros(c, dtype=x.dtype, device=x.device)
+    params = [t.to(x.dtype).detach().requires_grad_() for t in (x, lw, lb, w1, b1, w2, b2)]
+
+    def fwd():
+        xl, lwl, lbl, w1l, b1l, w2l, b2l = params
+        a, g = F.linear(F.layer_norm(xl, (c,), lwl, lbl), w1l, b1l).chunk(2, dim=-1)
+        return F.linear(a * F.gelu(g), w2l, b2l) + xl
+
+    return composite_bwd_ms(fwd, params)
+
+
+# vk_wgrad as (M; segs x N1 x N2) and vk_seg_gemm as (segs, M, k) -> N, at
+# every shape the phase-1 step gives them
+WGRAD_SHAPES = [(230400, 1, 320, 320, "one qkv segment; K3 attn-out ds1"),
+                (230400, 3, 320, 320, "qkv ds1, all three segments"),
+                (230400, 1, 2560, 320, "ff_bwd dW1 ds1"),
+                (230400, 1, 320, 1280, "ff_bwd dW2 ds1"),
+                (57600, 3, 640, 640, "qkv ds2"),
+                (14400, 3, 1280, 1280, "qkv ds4"),
+                (14400, 1, 1280, 1280, "K3 temporal-out ds4")]
+SEG_GEMM_SHAPES = [(3, 230400, 320, 320, torch.float32, "qkv dxn ds1"),
+                   (1, 230400, 2560, 320, torch.float32, "ff_bwd dxn ds1"),
+                   (1, 230400, 320, 320, torch.bfloat16, "K3 da ds1"),
+                   (3, 14400, 1280, 1280, torch.float32, "qkv dxn ds4")]
+
+
+def primitive_checks(rnd, rows):
+    """The two GEMMs under ff_bwd, qkv_bwd and K3's backward, each alone:
+    ``weight_grad`` (vk_wgrad + the split sum, fp32 out) and ``seg_gemm``
+    against their fp32 plain versions, with one cuBLAS call of the same
+    product in bf16 as the yardstick (``torch.mm``, which writes bf16 where
+    vk_wgrad and the fp32 seg_gemm rows write fp32; the segments laid out
+    as one (M, segs * k) operand for it beforehand)."""
+    from vista_tpu_torch.ops.linear import (seg_gemm, seg_gemm_plain, weight_grad,
+                                            weight_grad_plain)
+
+    ok = True
+    for m, segs, n1, n2, use in WGRAD_SHAPES:
+        a, b = (rnd(segs, m, n1) if segs > 1 else rnd(m, n1)), rnd(m, n2)
+        flat = a.permute(1, 0, 2).reshape(m, segs * n1) if segs > 1 else a
+        ok &= compare("vk_wgrad", f"({m}; {segs}x{n1} x {n2}) {use}, fp32 (cuBLAS bf16)",
+                      lambda: weight_grad(a, b), lambda: weight_grad_plain(a, b),
+                      lambda: weight_grad_plain(a, b), rows,
+                      2 * m * segs * n1 * n2, 2 * m * (segs * n1 + n2) + 4 * segs * n1 * n2,
+                      lambda: time_ms(lambda: torch.mm(flat.t(), b)))
+        del a, b, flat
+    for segs, m, k, n, dtype, use in SEG_GEMM_SHAPES:
+        a, w = rnd(segs, m, k), rnd(segs * k, n, std=k ** -0.5)
+        flat = a.permute(1, 0, 2).reshape(m, segs * k)
+        out_bytes = 4 if dtype == torch.float32 else 2
+        ok &= compare("vk_seg_gemm", f"({segs}, {m}, {k})->{n} {use}, "
+                      f"{'fp32 (cuBLAS bf16)' if out_bytes == 4 else 'bf16'}",
+                      lambda: seg_gemm(a, w, dtype), lambda: seg_gemm_plain(a, w),
+                      lambda: seg_gemm_plain(a, w), rows,
+                      2 * m * segs * k * n, 2 * (m * segs * k + segs * k * n) + out_bytes * m * n,
+                      lambda: time_ms(lambda: torch.mm(flat, w)))
+        del a, w, flat
     torch.cuda.empty_cache()
     return ok
 

@@ -21,7 +21,8 @@ from vista_tpu_torch.ops.fused_temporal_attn import (fused_temporal_self_attn,
 from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_bwd,
                                         linear_residual_bwd_plain, linear_residual_plain,
                                         ln_linear, ln_linear_plain, ln_linear_split_bwd,
-                                        ln_linear_split_bwd_plain)
+                                        ln_linear_split_bwd_plain, seg_gemm, seg_gemm_plain,
+                                        weight_grad, weight_grad_plain, wgrad_plan)
 from vista_tpu_torch.ops.norms import layer_norm_kernel, layer_norm_plain
 from vista_tpu_torch.ops.temporal_conv import (conv3, conv3_plain, gn_silu_conv3,
                                                gn_silu_conv3_plain)
@@ -178,6 +179,52 @@ def test_linear_residual_bwd(rnd, m, k, n):
     a, w, g = rnd(m, k), rnd(n, k, std=k ** -0.5), rnd(m, n)
     for t, r in zip(linear_residual_bwd(a, w, g), linear_residual_bwd_plain(*_f32(a, w, g))):
         _check(t, r)
+
+
+@pytest.mark.parametrize("m,n1,n2", [(129, 96, 64), (1000, 320, 320), (4097, 2560, 320),
+                                      (300, 320, 1280), (20000, 64, 96)])
+def test_weight_grad(rnd, m, n1, n2):
+    """Ragged token, row and column edges; (20000, 64, 96) spans several
+    splits with a ragged last one."""
+    if m == 20000:
+        _, splits, per = wgrad_plan(m, n1, n2)
+        assert splits > 2 and m % per
+    a, b = rnd(m, n1), rnd(m, n2)
+    _check(weight_grad(a, b), weight_grad_plain(a, b))
+    _check(weight_grad(a, b, dtype=torch.bfloat16), weight_grad_plain(a, b))
+
+
+@pytest.mark.parametrize("seg", [96, 320])
+def test_weight_grad_segments(rnd, seg):
+    """One launch for the q/k/v segments: (3, M, seg) -> (3 seg, N2)."""
+    m = 1000
+    a, b = rnd(3, m, seg), rnd(m, seg)
+    got = weight_grad(a, b)
+    assert got.shape == (3 * seg, seg)
+    _check(got, weight_grad_plain(a, b))
+
+
+@pytest.mark.parametrize("segs,m,k,n,dtype", [(3, 1000, 96, 96, torch.float32),
+                                              (1, 129, 2560, 320, torch.float32),
+                                              (1, 300, 320, 320, torch.bfloat16)])
+def test_seg_gemm(rnd, segs, m, k, n, dtype):
+    a, w = rnd(segs, m, k), rnd(segs * k, n, std=k ** -0.5)
+    got = seg_gemm(a, w, dtype)
+    assert got.dtype == dtype and got.shape == (m, n)
+    _check(got, seg_gemm_plain(a, w))
+
+
+def test_split_k_is_deterministic(rnd):
+    """The split-K sums add fixed partials in a fixed order: two calls give
+    the same bits."""
+    a, b = rnd(20000, 320), rnd(20000, 320)
+    assert torch.equal(weight_grad(a, b), weight_grad(a, b))
+    x, g = rnd(20000, 320, std=2.0), rnd(3, 20000, 320)
+    w = rnd(960, 320, std=320 ** -0.5)
+    lw, lb = 1 + rnd(320, std=0.1, dtype=torch.float32), rnd(320, std=0.1, dtype=torch.float32)
+    first, second = (ln_linear_split_bwd(x, lw, lb, w, g) for _ in range(2))
+    for t, u in zip(first, second):
+        assert torch.equal(t, u)
 
 
 def test_temporal_self_attn_grads(rnd):

@@ -21,17 +21,20 @@
 //      + dy (the residual), and per-block partial column sums of dxn * xhat
 //      (dgamma) and dxn (dbeta);
 //   4. wgrad (weight grads only): dW1 = dH^T xn and dW2 = dy^T hg, the
-//      contraction over all M tokens split into S ranges, each block
-//      writing an fp32 partial (S, N1, N2);
+//      contraction over all M tokens split into S ranges, each item
+//      writing an fp32 partial (S, N1, N2); TMA + wgmma on the skeleton of
+//      csrc/gemm_tma.cuh, the operands read as stored (both MN-major). The
+//      same launch serves qkv_bwd's dWq/dWk/dWv (segments) and K3's dWo;
 //   5. col_sum: db1 = colsum(dH), db2 = colsum(dy) as per-range partials;
-//   6. sum_splits: adds the partials of 3-5 in a fixed order. Every
-//      reduction is deterministic: no atomics.
+//   6. sum_splits: adds the partials of 3-5 in a fixed order, in the
+//      weight's dtype. Every reduction is deterministic: no atomics.
 //
 // Bound on the H100: the products (2 * M * c * 8c for [a|g], 2 * M * c * 4c
 // for dhg, 2 * M * 8c * c for dxn, 2 * M * c * 8c + 2 * M * c * 4c for the
 // weight grads) make it tensor-core bound at every UNet width; dH
 // (M x 8c bf16) is the one large intermediate in device memory.
 #include "common.cuh"
+#include "gemm_tma.cuh"
 
 namespace vk {
 
@@ -201,79 +204,77 @@ ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dxn,
   }
 }
 
-// 4. part[s] (N1, N2) fp32 = sum over m in split s of A[m, n1] B[m, n2];
-// A (M, N1), B (M, N2) bf16 row-major; N1, N2 % 8 == 0. The tiles are
-// staged transposed (token index along the smem row) for mma_slice.
-__global__ void __launch_bounds__(GEMM_THREADS)
-wgrad_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
-             float* __restrict__ part, int M, int N1, int N2,
-             int m_per_split) {
-  __shared__ __align__(16) GemmSmem sm;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int n10 = blockIdx.x * BM, n20 = blockIdx.y * BN;
-  const int mbeg = blockIdx.z * m_per_split;
-  const int mend = min(M, mbeg + m_per_split);
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+// 4. part[split] (segs * N1, N2) fp32: row s * N1 + n1 is the sum over the
+// tokens m of the split of A_s[m, n1] B[m, n2]; A (segs, M, N1) and B (M, N2)
+// bf16, token-major. Both operands are MN-major for this product (the
+// output index contiguous), so TMA loads boxes of 64 tokens x 64 columns as
+// the activations are stored and wgmma reads both with the transpose bit
+// set: no thread touches an operand on its way in. An item is one split of
+// one 128 x 320 tile of one segment; the items of a split are adjacent, so
+// the blocks in flight share its token range of B in L2. Splits start on a
+// 64-token box (rows_per_split % 64 == 0): TMA zero-fills only past M, so a
+// box must never reach into the next split.
+__global__ void __launch_bounds__(TG_THREADS, 1)
+wgrad_tma_kernel(__grid_constant__ const CUtensorMap tm_a,
+                 __grid_constant__ const CUtensorMap tm_b, float* __restrict__ part, int M,
+                 int N1, int N2, int segs, int splits, int rows_per_split) {
+  extern __shared__ uint8_t smem_raw[];
+  TgRing ring = tg_ring(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t1 = (N1 + TG_BM - 1) / TG_BM, t2 = (N2 + TG_BN - 1) / TG_BN;
+  const int per_split = segs * t1 * t2, items = splits * per_split;
+  // item -> split, segment, row tile, column tile (the column tile fastest)
+  auto decode = [&](int item, int& split, int& s, int& n10, int& n20) {
+    split = item / per_split;
+    int r = item - split * per_split;
+    s = r / (t1 * t2);
+    r -= s * t1 * t2;
+    n10 = r / t2 * TG_BM;
+    n20 = r % t2 * TG_BN;
+  };
+  auto token_stages = [&](int split) {
+    const int m0 = split * rows_per_split;
+    return (min(M, m0 + rows_per_split) - m0 + TG_BK - 1) / TG_BK;
+  };
 
-  // 32 tokens x 128 columns per operand: 512 chunks of 8, two per thread.
-  auto fetch = [&](const bf16* src, int ncols, int c0, int m0, int c, uint4& v) {
-    const int k = c >> 4, n8 = (c & 15) * 8, m = m0 + k, n = c0 + n8;
-    v = (m < mend && n < ncols)
-            ? *reinterpret_cast<const uint4*>(src + (size_t)m * ncols + n)
-            : make_uint4(0, 0, 0, 0);
-  };
-  auto stage = [&](bf16* dst, int c, const uint4& v) {
-    const int k = c >> 4, n8 = (c & 15) * 8;
-    const bf16* h = reinterpret_cast<const bf16*>(&v);
+  if (warp >= TG_CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (warp == TG_CONSUMER_WARPS && lane == 0) {
+      tma_prefetch_map(&tm_a);
+      tma_prefetch_map(&tm_b);
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        int split, s, n10, n20;
+        decode(item, split, s, n10, n20);
+        const int stages = token_stages(split);
+        for (int i = 0; i < stages; ++i) {
+          const int m = split * rows_per_split + i * TG_BK;
+          tg_acquire(ring);
+          const uint32_t dst = ring.tile();
+          tma_load_3d(dst, &tm_a, ring.full(), n10, m, s);
+          tma_load_3d(dst + TG_BOX_BYTES, &tm_a, ring.full(), n10 + 64, m, s);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) dst[(n8 + e) * SK + k] = h[e];
-  };
-  uint4 ra[2], rb[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    fetch(a, N1, n10, mbeg, tid + r * GEMM_THREADS, ra[r]);
-    fetch(b, N2, n20, mbeg, tid + r * GEMM_THREADS, rb[r]);
-  }
-  for (int m0 = mbeg; m0 < mend; m0 += BK) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      stage(sm.a, tid + r * GEMM_THREADS, ra[r]);
-      stage(sm.b, tid + r * GEMM_THREADS, rb[r]);
-    }
-    __syncthreads();
-    if (m0 + BK < mend) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        fetch(a, N1, n10, m0 + BK, tid + r * GEMM_THREADS, ra[r]);
-        fetch(b, N2, n20, m0 + BK, tid + r * GEMM_THREADS, rb[r]);
+          for (int q = 0; q < TG_BN / 64; ++q)
+            tma_load_2d(dst + TG_A_BYTES + q * TG_BOX_BYTES, &tm_b, ring.full(), n20 + 64 * q, m);
+          ring.advance();
+        }
       }
     }
-    mma_slice(sm.a, sm.b, acc, wm, wn, lane);
-    __syncthreads();
-  }
-  const int g = lane >> 2, t = lane & 3;
-  float* dst = part + (size_t)blockIdx.z * N1 * N2;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n1 = n10 + wm * 64 + i * 16 + g + half * 8;
-      if (n1 >= N1) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n2 = n20 + wn * 32 + j * 8 + t * 2;
-        if (n2 >= N2) continue;
-        *reinterpret_cast<float2*>(dst + (size_t)n1 * N2 + n2) =
-            make_float2(acc[i][j][half * 2], acc[i][j][half * 2 + 1]);
-      }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int wg = warp >> 2;
+    TgAcc acc;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      int split, s, n10, n20;
+      decode(item, split, s, n10, n20);
+      tg_mainloop<true>(ring, acc, token_stages(split), wg, lane);
+      float* dst = part + ((size_t)split * segs + s) * N1 * N2;
+      tg_epilogue(acc, wg, warp & 3, lane, [&](int r, int c, float v0, float v1) {
+        const int n1 = n10 + r, n2 = n20 + c;
+        if (n1 < N1 && n2 < N2)
+          *reinterpret_cast<float2*>(dst + (size_t)n1 * N2 + n2) = make_float2(v0, v1);
+      });
     }
+  }
 }
 
 // 5. part[s, n] = sum over rows in split s of A[m, n]; one thread per column.
@@ -288,15 +289,18 @@ col_sum_kernel(const bf16* __restrict__ a, float* __restrict__ part, int M,
   part[(size_t)blockIdx.y * N + n] = s;
 }
 
-// 6. out[i] = sum_s part[s, i], in order of s.
+// 6. out[i] = sum_s part[s, i], in order of s, stored as fp32 or bf16.
+template <typename T>
 __global__ void __launch_bounds__(256)
-sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
-                  int S, long L) {
+sum_splits_kernel(const float* __restrict__ part, T* __restrict__ out, int S, long L) {
   const long i = (long)blockIdx.x * 256 + threadIdx.x;
   if (i >= L) return;
   float s = 0.f;
   for (int k = 0; k < S; ++k) s += part[(size_t)k * L + i];
-  out[i] = s;
+  if constexpr (sizeof(T) == 4)
+    out[i] = s;
+  else
+    out[i] = __float2bfloat16(s);
 }
 
 }  // namespace vk
@@ -330,14 +334,33 @@ extern "C" int vk_ln_bwd(const void* x, const void* dxn, const void* gamma,
   return (int)cudaGetLastError();
 }
 
-// 4. part (S, N1, N2) fp32 from a (M, N1), b (M, N2) bf16; splits of
-// m_per_split rows (a multiple of 32). N1, N2 % 8 == 0.
-extern "C" int vk_wgrad(const void* a, const void* b, void* part, int M,
-                        int N1, int N2, int splits, int m_per_split,
-                        void* stream) {
-  dim3 grid((N1 + vk::BM - 1) / vk::BM, (N2 + vk::BN - 1) / vk::BN, splits);
-  vk::wgrad_kernel<<<grid, vk::GEMM_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)a, (const bf16*)b, (float*)part, M, N1, N2, m_per_split);
+// 4. part (splits, segs * N1, N2) fp32 from a (segs, M, N1), b (M, N2) bf16;
+// splits of rows_per_split tokens (a multiple of 64). N1, N2 % 8 == 0, a and
+// b 16-byte aligned.
+extern "C" int vk_wgrad(const void* a, const void* b, void* part, int M, int N1, int N2,
+                        int segs, int splits, int rows_per_split, void* stream) {
+  using namespace vk;
+  if (M <= 0 || N1 % 8 || N2 % 8 || segs <= 0 || rows_per_split % TG_BK ||
+      (long)splits * rows_per_split < M || (long)(splits - 1) * rows_per_split >= M ||
+      ((uintptr_t)a | (uintptr_t)b) % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_a, tm_b;
+  const uint64_t a_dims[3] = {(uint64_t)N1, (uint64_t)M, (uint64_t)segs};
+  const uint64_t a_strides[2] = {(uint64_t)N1 * 2, (uint64_t)M * N1 * 2};
+  const uint32_t a_box[3] = {64, TG_BK, 1};
+  const uint64_t b_dims[2] = {(uint64_t)N2, (uint64_t)M};
+  const uint64_t b_strides[1] = {(uint64_t)N2 * 2};
+  const uint32_t b_box[2] = {64, TG_BK};
+  if (!make_tmap_bf16(&tm_a, a, 3, a_dims, a_strides, a_box) ||
+      !make_tmap_bf16(&tm_b, b, 2, b_dims, b_strides, b_box))
+    return (int)cudaErrorInvalidValue;
+  const long items = (long)splits * segs * ((N1 + TG_BM - 1) / TG_BM) * ((N2 + TG_BN - 1) / TG_BN);
+  const int grid = (int)(items < tg_sm_count() ? items : tg_sm_count());
+  if (cudaError_t e = cudaFuncSetAttribute(wgrad_tma_kernel,
+                                            cudaFuncAttributeMaxDynamicSharedMemorySize, TG_SMEM))
+    return (int)e;
+  wgrad_tma_kernel<<<grid, TG_THREADS, TG_SMEM, (cudaStream_t)stream>>>(
+      tm_a, tm_b, (float*)part, M, N1, N2, segs, splits, rows_per_split);
   return (int)cudaGetLastError();
 }
 
@@ -350,11 +373,16 @@ extern "C" int vk_col_sum(const void* a, void* part, int M, int N, int splits,
   return (int)cudaGetLastError();
 }
 
-// 6. out (L) fp32 = sum over S of part (S, L).
-extern "C" int vk_sum_splits(const void* part, void* out, int S, long L,
+// 6. out (L) = sum over S of part (S, L) fp32, stored as bf16 when out_bf16
+// else fp32.
+extern "C" int vk_sum_splits(const void* part, void* out, int S, long L, int out_bf16,
                              void* stream) {
-  vk::sum_splits_kernel<<<(unsigned)((L + 255) / 256), 256, 0,
-                          (cudaStream_t)stream>>>((const float*)part,
-                                                  (float*)out, S, L);
+  const unsigned grid = (unsigned)((L + 255) / 256);
+  if (out_bf16)
+    vk::sum_splits_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>((const float*)part,
+                                                                   (bf16*)out, S, L);
+  else
+    vk::sum_splits_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>((const float*)part,
+                                                                   (float*)out, S, L);
   return (int)cudaGetLastError();
 }

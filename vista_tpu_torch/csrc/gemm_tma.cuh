@@ -1,0 +1,147 @@
+// The TMA + wgmma GEMM skeleton that vk_wgrad (csrc/ff_bwd.cu) and
+// vk_seg_gemm (csrc/qkv_bwd.cu) share: a persistent block of three
+// warpgroups walks work items, each a 128 x 320 fp32 output tile summed over
+// a run of 64-deep stages that TMA brings into a 4-stage shared-memory ring.
+//
+//   - The producer warpgroup gives its registers to the consumers
+//     (setmaxnreg 40 vs 232); one of its threads keeps the ring full under
+//     full/empty mbarriers, running on from one item into the next, so the
+//     next item's loads overlap this item's epilogue.
+//   - Two consumer warpgroups own 64 output rows each and hold their 64 x 320
+//     accumulator as one m64n256 and one m64n64 product per 16-deep slice,
+//     both operands read from shared memory (SS). 320 = 5 x 64 tiles every
+//     UNet width (320, 640, 1280) without a ragged column tile.
+//   - A stage is seven 128B-swizzled 64 x 64 bf16 boxes (8 KB each): A, the
+//     two warpgroups' 64 output rows x 64 of depth, at 0 and 8 KB; B, 64 of
+//     depth x output columns 64 q .. 64 q + 63 at 16 KB + 8 q KB, MN-major (a
+//     box of a row-major (depth, columns) tensor). A is MN-major in vk_wgrad
+//     (a box of token rows of an activation) and K-major in vk_seg_gemm.
+//   - Out-of-range rows, columns and depth arrive from TMA as zeros, so the
+//     ragged edges need no masks in the main loop; the epilogue drops what
+//     lies outside the output.
+//
+// Shared memory: 4 x 56 KB + barriers, 225 KB (dynamic, opt-in). 384 threads,
+// one block per SM.
+#pragma once
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace vk {
+
+constexpr int TG_BM = 128, TG_BN = 320, TG_BK = 64, TG_STAGES = 4;
+constexpr int TG_CONSUMER_WARPS = 8;
+constexpr int TG_THREADS = TG_CONSUMER_WARPS * 32 + 128;
+constexpr int TG_BOX_BYTES = 64 * 64 * 2;
+constexpr int TG_A_BYTES = 2 * TG_BOX_BYTES;
+constexpr int TG_STAGE_BYTES = TG_A_BYTES + (TG_BN / 64) * TG_BOX_BYTES;
+constexpr int TG_SMEM = 1024 + TG_STAGES * TG_STAGE_BYTES + 16 * TG_STAGES;
+
+// One side's view of the ring: the stage it is at and that stage's phase.
+struct TgRing {
+  uint32_t base, full0, empty0;
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ uint32_t tile() const { return base + stage * TG_STAGE_BYTES; }
+  __device__ uint32_t full() const { return full0 + 8 * stage; }
+  __device__ uint32_t empty() const { return empty0 + 8 * stage; }
+  __device__ void advance() {
+    if (++stage == TG_STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Every thread calls it: the ring in dynamic shared memory (1024-aligned
+// for the swizzle), barriers initialised.
+__device__ __forceinline__ TgRing tg_ring(uint8_t* smem_raw) {
+  const uint32_t raw = smem_u32(smem_raw);
+  TgRing r;
+  r.base = (raw + 1023) & ~1023u;
+  r.full0 = r.base + TG_STAGES * TG_STAGE_BYTES;
+  r.empty0 = r.full0 + 8 * TG_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TG_STAGES; ++s) {
+      mbar_init(r.full0 + 8 * s, 1);
+      mbar_init(r.empty0 + 8 * s, TG_CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return r;
+}
+
+// Producer: waits for the stage to be free and arms its full barrier for
+// the seven boxes that the caller then loads.
+__device__ __forceinline__ void tg_acquire(const TgRing& r) {
+  mbar_wait(r.empty(), r.phase ^ 1);
+  mbar_arrive_expect_tx(r.full(), TG_STAGE_BYTES);
+}
+
+struct TgAcc {
+  float a[128];  // columns 0..255
+  float b[32];   // columns 256..319
+};
+
+// Consumer warpgroup `wg`: `stages` stages of products into `acc` (which
+// starts from zero), each stage handed back to the producer once its
+// products are done.
+template <bool A_MN>
+__device__ __forceinline__ void tg_mainloop(TgRing& r, TgAcc& acc, int stages, int wg,
+                                            int lane) {
+  uint32_t done = 0;  // the empty barrier of the stage whose products are in flight
+  for (int i = 0; i < stages; ++i) {
+    mbar_wait(r.full(), r.phase);
+    const uint32_t a = r.tile() + wg * TG_BOX_BYTES, b = r.tile() + TG_A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TG_BK / 16; ++kk) {
+      const uint64_t da = A_MN ? desc_sw128_mn(a + kk * 2048) : desc_sw128(a) + 2 * kk;
+      const int acc_in = (i | kk) != 0;
+      wgmma_m64n256k16_ss<A_MN ? 1 : 0, 1>(acc.a, da, desc_sw128_mn(b + kk * 2048), acc_in);
+      wgmma_m64n64k16_ss<A_MN ? 1 : 0, 1>(
+          acc.b, da, desc_sw128_mn(b + 4 * TG_BOX_BYTES + kk * 2048), acc_in);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done
+    if (i > 0 && lane == 0) mbar_arrive(done);
+    done = r.empty();
+    r.advance();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int e = 0; e < 128; ++e) reg_fence(acc.a[e]);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) reg_fence(acc.b[e]);
+  if (lane == 0) mbar_arrive(done);
+}
+
+// Hands each accumulator pair to store(row, col, v0, v1): row (0..127) and
+// col (even, 0..318) within the tile, for columns col and col + 1.
+template <class Store>
+__device__ __forceinline__ void tg_epilogue(const TgAcc& acc, int wg, int warp_in_wg, int lane,
+                                            const Store& store) {
+  const int row = 64 * wg + 16 * warp_in_wg + (lane >> 2), col = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      store(row + 8 * i, 8 * j + col, acc.a[4 * j + 2 * i], acc.a[4 * j + 2 * i + 1]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      store(row + 8 * i, 256 + 8 * j + col, acc.b[4 * j + 2 * i], acc.b[4 * j + 2 * i + 1]);
+  }
+}
+
+static inline int tg_sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+}  // namespace vk

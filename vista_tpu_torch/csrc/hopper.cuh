@@ -1,13 +1,19 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels, as inline
-// PTX: mbarriers, TMA tile loads, wgmma (bf16 -> fp32) with B read from
-// shared memory through a matrix descriptor, ldmatrix, and the host-side
-// tensor-map encoder. Nothing here depends on a particular kernel.
+// PTX: mbarriers, TMA tile loads and stores, wgmma (bf16 -> fp32) with A in
+// registers or shared memory and B in shared memory through matrix
+// descriptors (K-major or MN-major), ldmatrix, and the host-side tensor-map
+// encoder. Nothing here depends on a particular kernel.
 //
 // Shared-memory tiles are K-major (64 bf16 = 128 bytes per row) with the
 // 128-byte swizzle that TMA writes (CU_TENSOR_MAP_SWIZZLE_128B): the 16-byte
 // chunk c of row r lies at r * 128 + ((c ^ (r % 8)) * 16), so a tile must
 // start on a 1024-byte boundary. wgmma reads such a tile through
-// `desc_sw128`; its 16-wide K slices start 32 bytes apart.
+// `desc_sw128`; its 16-wide K slices start 32 bytes apart. An MN-major tile
+// is the same layout with M or N along the 128-byte row and one row per K
+// (a box of a row-major (K, MN) tensor, such as token-major activations for
+// a product over tokens); wgmma reads it through `desc_sw128_mn` with the
+// operand's transpose bit set, and its 16-deep K slices start 2048 bytes
+// apart.
 //
 // wgmma fragment layouts (warp w of the warpgroup, g = lane / 4, t = lane % 4):
 //   A in registers, 64 x 16: the mma.m16n8k16 A layout on rows 16 w..16 w + 15:
@@ -209,6 +215,75 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(desc));
 }
 
+// Descriptor of an MN-major, 128B-swizzled operand at shared address `addr`
+// (1024-aligned): rows of 64 bf16 along M or N (128 bytes), one row per step
+// of the depth K, as TMA writes a 64 x 64 box of a row-major (K, MN) tensor.
+// SBO is the step between 8-row (8 K) groups, 1024 bytes; LBO the step
+// between 64-wide MN blocks, one 8 KB box. Add 128 (2048 bytes) per 16-deep
+// K slice. (The canonical MN-major layout of CuTe's GMMA atoms,
+// cute/atom/mma_traits_sm90_gmma.hpp.)
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(8192 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x N, fp32) = a (64 x 16) * b (16 x N) + (scale_d ? d : 0), both bf16
+// in shared memory through descriptors; TA / TB = 1 where that operand is
+// MN-major (the transpose bits), 0 where it is K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, %131, %132;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
+        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, %35, %36;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // ---- host: tensor maps
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -245,6 +320,11 @@ static inline bool make_tmap_bf16(CUtensorMap* map, const void* ptr, int rank,
                                   const uint32_t* box) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
+  // cuTensorMapEncodeTiled needs a current context. A thread that has made
+  // no runtime call yet (the autograd engine's, running a backward) has
+  // none; cudaSetDevice makes the device's primary context current.
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return false;
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
                 reinterpret_cast<const cuuint64_t*>(dims),

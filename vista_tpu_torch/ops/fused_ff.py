@@ -84,7 +84,7 @@ def ff_bwd(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5, needs=(True,) * 7,
     _build.launch("vk_ff_bwd_dh", xn.data_ptr(), dy.data_ptr(), w1.data_ptr(),
                   w2t.data_ptr(), bias1.data_ptr(), hg.data_ptr(), dh.data_ptr(), m, c, n)
     del w2t
-    dxn = seg_gemm(dh.view(1, m, 2 * n), w1.t().contiguous(), torch.float32)
+    dxn = seg_gemm(dh.view(1, m, 2 * n), w1, torch.float32)
     want_ln = needs[1] or needs[2]
     dx, dln_w, dln_b = ln_backward(x, dxn, ln_w, dy, eps, want_ln)
     del dxn
@@ -93,11 +93,11 @@ def ff_bwd(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5, needs=(True,) * 7,
         out[1], out[2] = dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype)
     dy2 = dy.reshape(m, c)
     if needs[3]:
-        out[3] = weight_grad(dh, xn.reshape(m, c)).to(w1.dtype)
+        out[3] = weight_grad(dh, xn.reshape(m, c), dtype=w1.dtype)
     if needs[4]:
         out[4] = column_sum(dh).to(b1.dtype)
     if needs[5]:
-        out[5] = weight_grad(dy2, hg).to(w2.dtype)
+        out[5] = weight_grad(dy2, hg, dtype=w2.dtype)
     if needs[6]:
         out[6] = column_sum(dy2)
     _build.count("ff_bwd", site)

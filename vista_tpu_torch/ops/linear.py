@@ -35,6 +35,7 @@ explicit fp32 formulas:
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -56,34 +57,87 @@ def gelu_erf(g: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------- split-K reductions
 
+GEMM_TILE = (128, 320)  # output tile of vk_wgrad and vk_seg_gemm (csrc/gemm_tma.cuh)
+TOKEN_BOX = 64  # tokens per TMA box, one stage of vk_wgrad
+_STAGE_US = 1.0  # one 64-token stage of one tile: the plan's unit of cost
+_HBM_BYTES_PER_US = 3.35e6  # the H100's memory rate, for the partials' cost
+
+
 def _splits(m: int, tiles: int):
-    """Row ranges (a multiple of 32 rows each) for a split-K reduction: about
-    four blocks per SM over all splits, at least 256 rows per split."""
+    """Row ranges (a multiple of 32 rows each) for a column-sum reduction:
+    about four blocks per SM over all splits, at least 256 rows per split."""
     splits = max(1, min(-(-528 // max(tiles, 1)), m // 256))
     per = -(-m // splits)
     per = -(-per // 32) * 32
     return -(-m // per), per
 
 
-def sum_splits(part: torch.Tensor, splits: int, shape=None, out=None):
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(m: int, n1: int, n2: int, segs: int = 1, sms: int = 132):
+    """The split-K plan of ``vk_wgrad`` for ``a^T b``, a (segs, m, n1) and b
+    (m, n2): (tile_n, splits, rows_per_split). The kernel's tile is 128 x
+    ``tile_n`` (320: it covers n2 in ceil(n2 / 320) tiles, the UNet widths
+    exactly). Every split but the last has ``rows_per_split`` tokens, a
+    multiple of the 64-token TMA box, because TMA zero-fills only past m and
+    a box must not reach into the next split; the last ends at m. The count
+    weighs the rounds of a persistent grid of ``sms`` blocks over
+    splits x tiles items (each 64-token stage of a tile costs about the
+    same) against the fp32 partials written and read back."""
+    tiles = segs * -(-n1 // GEMM_TILE[0]) * -(-n2 // GEMM_TILE[1])
+    boxes = -(-m // TOKEN_BOX)
+    best = None
+    for want in range(1, min(boxes, 4 * sms) + 1):
+        per = -(-boxes // want)
+        splits = -(-boxes // per)
+        cost = (-(-tiles * splits // sms) * per * _STAGE_US
+                + 8 * splits * segs * n1 * n2 / _HBM_BYTES_PER_US)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per * TOKEN_BOX)
+    return GEMM_TILE[1], best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sum_splits(part: torch.Tensor, splits: int, shape, dtype=torch.float32):
     """``part.sum(0)`` in fp32, in order of the split (``vk_sum_splits``),
-    into ``out`` (a contiguous fp32 tensor) or a new tensor of ``shape``."""
-    if out is None:
-        out = torch.empty(shape, dtype=torch.float32, device=part.device)
-    _build.launch("vk_sum_splits", part.data_ptr(), out.data_ptr(), splits, out.numel())
+    as a new tensor of ``shape`` in ``dtype`` (fp32 or bf16)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"sum_splits writes fp32 or bf16, not {dtype}")
+    out = torch.empty(shape, dtype=dtype, device=part.device)
+    _build.launch("vk_sum_splits", part.data_ptr(), out.data_ptr(), splits, out.numel(),
+                  int(out.dtype == torch.bfloat16))
     return out
 
 
-def weight_grad(a: torch.Tensor, b: torch.Tensor, out=None):
-    """``a^T b`` over all rows in fp32 (``vk_wgrad`` + ``vk_sum_splits``):
-    a (M, N1), b (M, N2) bf16."""
-    m, n1 = a.shape
-    n2 = b.shape[1]
-    splits, per = _splits(m, -(-n1 // 128) * -(-n2 // 128))
-    part = torch.empty(splits, n1, n2, dtype=torch.float32, device=a.device)
-    _build.launch("vk_wgrad", a.data_ptr(), b.data_ptr(), part.data_ptr(), m, n1, n2,
+def weight_grad_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a^T b`` in fp32: a (M, N1) or (segs, M, N1), b (M, N2); segments'
+    products stacked as rows, (segs * N1, N2)."""
+    a3 = a.float().reshape(-1, *a.shape[-2:])
+    return (a3.transpose(1, 2) @ b.float()).reshape(-1, b.shape[-1])
+
+
+def weight_grad(a: torch.Tensor, b: torch.Tensor, dtype=torch.float32):
+    """``a^T b`` over all rows, summed in fp32 (``vk_wgrad`` + ``vk_sum_splits``):
+    a (M, N1) or (segs, M, N1), b (M, N2) bf16. With segments, one launch
+    computes every segment's product, stacked as rows (segs * N1, N2). The
+    result is stored as ``dtype`` (fp32 or bf16)."""
+    if _build.on_cpu(a, b):
+        return weight_grad_plain(a, b).to(dtype)
+    a3 = a.view(1, *a.shape) if a.dim() == 2 else a
+    segs, m, n1 = a3.shape
+    n2 = b.shape[-1]
+    if n1 % 8 or n2 % 8:
+        raise ValueError(f"weight_grad needs N1 % 8 == 0 and N2 % 8 == 0: {n1}, {n2}")
+    _build.check(a3, "a", torch.bfloat16)
+    _build.check(b, "b", torch.bfloat16, (m, n2))
+    _, splits, per = wgrad_plan(m, n1, n2, segs, _sm_count(a.device.index or 0))
+    part = torch.empty(splits, segs * n1, n2, dtype=torch.float32, device=a.device)
+    _build.launch("vk_wgrad", a3.data_ptr(), b.data_ptr(), part.data_ptr(), m, n1, n2, segs,
                   splits, per)
-    return sum_splits(part, splits, (n1, n2), out)
+    return sum_splits(part, splits, (segs * n1, n2), dtype)
 
 
 def column_sum(a: torch.Tensor):
@@ -116,18 +170,28 @@ def ln_backward(x, dxn, ln_w, dres=None, eps=1e-5, want_ln=True):
     return dx, sum_splits(parts[0], blocks, (c,)), sum_splits(parts[1], blocks, (c,))
 
 
-def seg_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype):
-    """``Σ_s a[s] @ b[:, s*k:(s+1)*k]^T`` (``csrc/qkv_bwd.cu``): a (segs, M, k)
-    bf16, b (N, segs * k) bf16; returns (M, N) in fp32 or bf16."""
+def seg_gemm_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``Σ_s a[s] @ w[s*k:(s+1)*k]`` in fp32: a (segs, M, k), w (segs * k, N)."""
+    segs, _, k = a.shape
+    return (a.float() @ w.float().view(segs, k, -1)).sum(0)
+
+
+def seg_gemm(a: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype):
+    """``Σ_s a[s] @ w[s*k:(s+1)*k]`` (``csrc/qkv_bwd.cu``): a (segs, M, k)
+    bf16, w (segs * k, N) bf16, a weight as stored (dxn = Σ gᵢ Wᵢ with W in
+    Linear layout); returns (M, N) in fp32 or bf16."""
+    if _build.on_cpu(a, w):
+        return seg_gemm_plain(a, w).to(out_dtype)
     segs, m, k = a.shape
-    n = b.shape[0]
-    if k % _TILE_K or n % 2:
-        raise ValueError(f"seg_gemm needs k % {_TILE_K} == 0 and an even N: {k}, {n}")
+    n = w.shape[1]
+    if k % 8 or n % 8 or out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"seg_gemm needs k % 8 == 0, N % 8 == 0 and an fp32 or bf16 "
+                         f"output: {k}, {n}, {out_dtype}")
     _build.check(a, "a", torch.bfloat16)
-    _build.check(b, "b", torch.bfloat16, (n, segs * k))
+    _build.check(w, "w", torch.bfloat16, (segs * k, n))
     out = torch.empty(m, n, dtype=out_dtype, device=a.device)
-    _build.launch("vk_seg_gemm", a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, segs, n,
-                  m * k, int(out_dtype == torch.float32))
+    _build.launch("vk_seg_gemm", a.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, segs, n,
+                  int(out_dtype == torch.float32))
     return out
 
 
@@ -200,7 +264,8 @@ def ln_linear_split_bwd(x, ln_w, ln_b, w, g, eps=1e-5, needs=(True,) * 4,
     """Gradients of K2 split w.r.t. (x, ln_w, ln_b, w), None where ``needs``
     is false; the port of ``_qkv_bwd_kernel``. CUDA tensors: the layer_norm
     kernel (xn), ``vk_seg_gemm`` (dxn, fp32), :func:`ln_backward` (dx, dγ,
-    dβ), ``vk_wgrad`` per split (dW); CPU tensors: the plain version."""
+    dβ), one ``vk_wgrad`` launch for every split's dW, summed into w's dtype;
+    CPU tensors: the plain version."""
     if _build.on_cpu(x, g):
         grads = ln_linear_split_bwd_plain(x, ln_w, ln_b, w, g, eps)
         return tuple(t if need else None for t, need in zip(grads, needs))
@@ -219,18 +284,14 @@ def ln_linear_split_bwd(x, ln_w, ln_b, w, g, eps=1e-5, needs=(True,) * 4,
         if needs[3] else None
     g3 = g.view(splits, m, seg)
     if needs[0] or needs[1] or needs[2]:
-        dxn = seg_gemm(g3, w.t().contiguous(), torch.float32)
+        dxn = seg_gemm(g3, w, torch.float32)
         want_ln = needs[1] or needs[2]
         out[0], dln_w, dln_b = ln_backward(x, dxn, ln_w, None, eps, want_ln)
         del dxn
         if want_ln:
             out[1], out[2] = dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype)
     if needs[3]:
-        dw = torch.empty(n_w, c, dtype=torch.float32, device=x.device)
-        xn2 = xn.view(m, c)
-        for i in range(splits):
-            weight_grad(g3[i], xn2, out=dw[i * seg:(i + 1) * seg])
-        out[3] = dw.to(w.dtype)
+        out[3] = weight_grad(g3, xn.view(m, c), dtype=w.dtype)
     _build.count("qkv_bwd", site)
     return tuple(out)
 
@@ -322,9 +383,9 @@ def linear_residual_bwd(a, w, g, needs=(True,) * 3, site: str = "attn-out"):
     g2 = g.view(m, n)
     out = [None, None, None]
     if needs[0]:
-        out[0] = seg_gemm(g2.view(1, m, n), w.t().contiguous(), torch.bfloat16).view(a.shape)
+        out[0] = seg_gemm(g2.view(1, m, n), w, torch.bfloat16).view(a.shape)
     if needs[1]:
-        out[1] = weight_grad(g2, a.view(m, k)).to(w.dtype)
+        out[1] = weight_grad(g2, a.view(m, k), dtype=w.dtype)
     if needs[2]:
         out[2] = column_sum(g2)
     _build.count("linear_residual_bwd", site)
