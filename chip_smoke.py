@@ -112,10 +112,15 @@ SAMPLE_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3")
 TRAIN_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3",
                  "layer_norm", "attention_bwd", "ff_bwd", "conv3")
 PHASE1_KERNELS = TRAIN_KERNELS + ("qkv_bwd", "linear_residual_bwd")
-# the demangled names of each group's device functions, for the profiles;
-# vk_wgrad, seg_gemm, the LN backward and the split-K reductions serve
-# ff_bwd, qkv_bwd and K3's backward alike. Every __global__ function of
-# vista_tpu_torch/csrc/ belongs to one group (tests/test_torch_gemm_plan.py).
+# both routes of attention_bwd run on each training path: wgmma at the
+# spatial sites, mma.sync at the temporal ones
+ATTENTION_BWD_ROUTES = ("attention_bwd:wgmma", "attention_bwd:mma")
+# the demangled names of each group's device functions, for the profiles
+# (the first group whose prefix matches takes a kernel); vk_wgrad, seg_gemm,
+# the LN backward and the split-K reductions serve ff_bwd, qkv_bwd and K3's
+# backward alike; attention_bwd's two routes are apart. Every __global__
+# function of vista_tpu_torch/csrc/ belongs to one group
+# (tests/test_torch_gemm_plan.py).
 SYMBOLS = {
     "attention": ("vk::attention_kernel<",),
     "ln_linear": ("vk::ln_linear_kernel", "vk::ln_stats_kernel"),
@@ -123,7 +128,10 @@ SYMBOLS = {
     "gn_silu_conv3": ("vk::gn_silu_conv3_kernel<true>",),
     "conv3": ("vk::gn_silu_conv3_kernel<false>",),
     "layer_norm": ("vk::layer_norm_kernel",),
-    "attention_bwd": ("vk::attn_bwd_",),
+    "attention_bwd dK/dV (wgmma)": ("vk::attn_bwd_dkv_wgmma",),
+    "attention_bwd dQ (wgmma)": ("vk::attn_bwd_dq_wgmma",),
+    "attention_bwd prep (lse, D)": ("vk::attn_bwd_prep",),
+    "attention_bwd (mma.sync, Sk <= 64)": ("vk::attn_bwd_",),
     "ff_bwd_dh": ("vk::ff_bwd_dh_kernel",),
     "seg_gemm (dxn of ff_bwd, qkv_bwd; K3 da)": ("vk::seg_gemm_tma_kernel",),
     "vk_wgrad (split-K dW of ff_bwd, qkv_bwd, K3)": ("vk::wgrad_tma_kernel",),
@@ -166,9 +174,40 @@ def build():
     so = _build.build()
     _build.lib()
     log(f"kernels: {so.name} ({time.perf_counter() - t0:.1f} s)")
-    for line in _build.build_log.splitlines():
-        if any(k in line for k in ("registers", "spill", "error", "wgmma", "Performance")):
-            log("  ptxas: " + line.strip())
+    for line in ptxas_summary(_build.build_log):
+        log("  ptxas: " + line)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "build_log.txt").write_text(_build.build_log)
+
+
+def ptxas_summary(build_log):
+    """One line per kernel from nvcc's ``-Xptxas=-v`` log: its source,
+    registers, spills, and any wgmma serialisation or other performance
+    warning ptxas gave it."""
+    import re
+
+    lines, source, name, spill, warns = [], "", None, "", {}
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        for code, fn in re.findall(r"\((C7\d+)\)[^']*'(_Z\w+)'", line):
+            warns.setdefault(fn, []).append(code)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f", spill {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            label, short = name, re.match(r"_ZN2vk(\d+)", name)
+            if short:
+                end = short.end() + int(short.group(1))
+                label = name[short.end():end] + ("<...>" if name[end:end + 1] == "I" else "")
+            lines.append(f"{source}: {label}: {m.group(1)} registers{spill}"
+                         + "".join(f", {w}" for w in warns.get(name, [])))
+            name = None
+    return lines
 
 
 # ---------------------------------------------------------------- phase 3
@@ -245,8 +284,8 @@ def sdpa_layout(t, heads):
 
 def kernel_checks():
     from vista_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plain,
-                                               attention_forward, attention_packed,
-                                               attention_plain)
+                                               attention_bwd_plan, attention_forward,
+                                               attention_packed, attention_plain)
     from vista_tpu_torch.ops.fused_ff import ff_bwd, ff_bwd_plain
     from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_plain,
                                             ln_linear, ln_linear_plain)
@@ -406,7 +445,8 @@ def kernel_checks():
                 fwd = time_ms(lambda: sdpa(q4, k4, v4))
             return time_ms(sdpa_fwd_bwd) - fwd
 
-        ok &= compare("attention_bwd", f"{tag} 320x576 ({b},{s},{h}x64)",
+        route = attention_bwd_plan(b, s, s, h, s).route
+        ok &= compare("attention_bwd", f"{tag} 320x576 ({b},{s},{h}x64) {route}",
                       lambda: attention_bwd(q, k, v, o, lse, do, h),
                       lambda: attention_bwd_plain(q, k, v, o, lse, do, h),
                       lambda: attention_bwd_plain(*f32(q, k, v, o, lse, do), h), rows,
@@ -439,11 +479,36 @@ def kernel_checks():
         del gy, g5
     ok &= phase1_kernel_checks(rnd, f32, rows)
     ok &= primitive_checks(rnd, rows)
+    crossover = route_crossover(rnd)
     OUT.mkdir(exist_ok=True)
-    (OUT / "kernel_checks.json").write_text(json.dumps(dict(card=CARD, rows=rows), indent=1))
+    (OUT / "kernel_checks.json").write_text(json.dumps(dict(card=CARD, rows=rows,
+                                                            crossover=crossover), indent=1))
     if not ok:
         raise SystemExit("a kernel disagrees with its plain version")
     return rows
+
+
+def route_crossover(rnd):
+    """attention_bwd's two routes timed at the sites next to the threshold
+    (``SMALL_KEYS`` keys): the measurement behind ``attention_bwd_plan``."""
+    from vista_tpu_torch.ops.attention import (attention_bwd_launch, attention_bwd_plan,
+                                               attention_forward)
+
+    out = []
+    for b, s, h, tag in [(25, 45, 20, "mid 320x576"), (25, 144, 20, "mid 576x1024"),
+                         (25, 180, 20, "ds4 320x576"), (2880, 25, 5, "temporal ds1 320x576")]:
+        q, k, v, do = (rnd(b, s, h * 64) for _ in range(4))
+        o, lse = attention_forward(q, k, v, h, want_lse=True)
+        ms = {route: time_ms(lambda: attention_bwd_launch(
+                  q, k, v, o, lse, do, attention_bwd_plan(b, s, s, h, s, route=route)))
+              for route in ("mma", "wgmma")}
+        chosen = attention_bwd_plan(b, s, s, h, s).route
+        log(f"  attention_bwd route crossover {tag} ({b},{s},{h}x64): mma {ms['mma']:.3f} ms, "
+            f"wgmma {ms['wgmma']:.3f} ms; the plan takes {chosen}")
+        out.append(dict(shape=f"{tag} ({b},{s},{h}x64)", chosen=chosen, **ms))
+        del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return out
 
 
 def composite_bwd_ms(fwd, inputs):
@@ -468,7 +533,9 @@ def composite_bwd_ms(fwd, inputs):
 def phase1_kernel_checks(rnd, f32, rows):
     """The phase-1 training path's backward kernels at its shapes: 576x1024
     -> 72x128 latents, 25 frames, batch 1, so n = 25 h w token rows."""
-    from vista_tpu_torch.ops.attention import attention_bwd, attention_bwd_plain, attention_forward
+    from vista_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plain,
+                                               attention_bwd_plan, attention_bwd_prep,
+                                               attention_bwd_prep_plain, attention_forward)
     from vista_tpu_torch.ops.fused_ff import ff_bwd, ff_bwd_plain
     from vista_tpu_torch.ops.linear import (linear_residual_bwd, linear_residual_bwd_plain,
                                             ln_linear_split_bwd, ln_linear_split_bwd_plain)
@@ -516,20 +583,34 @@ def phase1_kernel_checks(rnd, f32, rows):
                       lambda: composite_bwd_ms(lambda: F.linear(al, wl, bl) + res, (al, wl, bl)))
         del a, g, al, res
     # attention_bwd at ds1 576x1024: 2 of the 25 frames, so that the plain
-    # fp32 (2, 5, 9216, 9216) score tensors fit.
-    b, s, h = 2, 9216, 5
-    q, k, v, do = (rnd(b, s, h * 64) for _ in range(4))
-    o, lse = attention_forward(q, k, v, h, want_lse=True)
-    q4, k4, v4, do4 = (sdpa_layout(t, h).detach().requires_grad_() for t in (q, k, v, do))
-    ok &= compare("attention_bwd", f"ds1 576x1024 (2 of 25, {s}, {h}x64)",
-                  lambda: attention_bwd(q, k, v, o, lse, do, h),
-                  lambda: attention_bwd_plain(q, k, v, o, lse, do, h),
-                  lambda: attention_bwd_plain(*f32(q, k, v, o, lse, do), h), rows,
-                  10 * b * h * s * s * 64, 2 * 8 * b * s * h * 64 + 4 * b * h * s,
-                  lambda: composite_bwd_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
-                                           (q4, k4, v4)), reps=3)
-    del q, k, v, do, o, lse, q4, k4, v4, do4
-    torch.cuda.empty_cache()
+    # fp32 (2, 5, 9216, 9216) score tensors fit; then its wgmma route's
+    # pre-pass alone (lse log2 e and D per row, each column an output); then
+    # ds2 576x1024 at its own size (25 frames, 2304 tokens, 10 heads).
+    for b, s, h, tag in [(2, 9216, 5, "ds1 576x1024 (2 of 25, 9216, 5x64)"),
+                         (25, 2304, 10, "ds2 576x1024 (25, 2304, 10x64)")]:
+        q, k, v, do = (rnd(b, s, h * 64) for _ in range(4))
+        o, lse = attention_forward(q, k, v, h, want_lse=True)
+        q4, k4, v4 = (sdpa_layout(t, h).detach().requires_grad_() for t in (q, k, v))
+        plan = attention_bwd_plan(b, s, s, h, s)
+        ok &= compare("attention_bwd", f"{tag} {plan.route}",
+                      lambda: attention_bwd(q, k, v, o, lse, do, h),
+                      lambda: attention_bwd_plain(q, k, v, o, lse, do, h),
+                      lambda: attention_bwd_plain(*f32(q, k, v, o, lse, do), h), rows,
+                      10 * b * h * s * s * 64, 2 * 8 * b * s * h * 64 + 4 * b * h * s,
+                      lambda: composite_bwd_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                                               (q4, k4, v4)), reps=3)
+        if b == 2:
+            def columns(r):
+                return r[:, :, :s, 0], r[:, :, :s, 1]
+
+            ok &= compare("attention_bwd", f"prep (lse, D) {tag}",
+                          lambda: columns(attention_bwd_prep(o, lse, do, plan)),
+                          lambda: columns(attention_bwd_prep_plain(o, lse, do, plan)),
+                          lambda: columns(attention_bwd_prep_plain(*f32(o, lse, do), plan)), rows,
+                          2 * b * s * h * 64,
+                          2 * 2 * b * s * h * 64 + 4 * b * h * s + 8 * b * h * plan.s_q_pad)
+        del q, k, v, do, o, lse, q4, k4, v4
+        torch.cuda.empty_cache()
     # the feed-forward backward at ds1, every gradient
     m, c = 230400, 320
     x, dy = rnd(m, c), rnd(m, c)
@@ -771,7 +852,8 @@ def _kernel_group(name):
 
 def _device_profile(label, fn):
     """Device time by kernel group over ``fn()`` and the card's busy share
-    of the host-clock wall time (one stream, so kernel times add up)."""
+    of the host-clock wall time (one stream, so kernel times add up; only
+    attention_bwd's dQ kernel runs beside its dK/dV kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -793,6 +875,11 @@ def _device_profile(label, fn):
         f"({100 * total / 1e6 / wall:.1f}% of wall)")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {g:18s} {us / 1e3:10.1f} ms  {100 * us / max(total, 1):5.1f}%")
+    attn_bwd = sum(us for g, us in groups.items() if g.startswith("K: attention_bwd"))
+    if attn_bwd:
+        # its dQ kernel runs on a second stream beside dK/dV, so the two may
+        # overlap by up to a wave of blocks: their sum can exceed their span
+        log(f"    {'K: attention_bwd, all routes':18s} {attn_bwd / 1e3:10.1f} ms")
     OUT.mkdir(exist_ok=True)
     (OUT / f"profile_{label}.txt").write_text(
         f"{CARD}\n" + prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
@@ -1003,7 +1090,7 @@ def train_run(seed):
     log(f"  train: {s_step:.3f} s/step (steps 2-{TRAIN_STEPS}; step 1 {steps[0]['seconds']:.3f} "
         f"s), peak {peak:.2f} GiB; card {CARD}")
     log(f"  launches over the {TRAIN_STEPS} steps: {json.dumps(sites, sort_keys=True)}")
-    missing = missing_launches(TRAIN_KERNELS, [
+    missing = missing_launches(TRAIN_KERNELS + ATTENTION_BWD_ROUTES, [
         "layer_norm/spatial-long", "layer_norm/spatial-short", "layer_norm/temporal",
         "attention/spatial-long", "attention/spatial-short", "attention/temporal",
         "attention_bwd/spatial-long", "attention_bwd/spatial-short", "attention_bwd/temporal",
@@ -1274,7 +1361,7 @@ def phase1_run(seed):
         faults.append(f"the EMA of {len(ema_still)} trained tensors did not move")
     if moved_frozen:
         faults.append(f"frozen tensors changed: {moved_frozen[:3]}")
-    missing = missing_launches(PHASE1_KERNELS, [
+    missing = missing_launches(PHASE1_KERNELS + ATTENTION_BWD_ROUTES, [
         "qkv_bwd/spatial-long", "qkv_bwd/spatial-short", "qkv_bwd/temporal",
         "linear_residual_bwd/attn-out", "linear_residual_bwd/temporal-out",
         "ln_linear/qkv", "ln_linear/temporal-qkv", "linear_residual/attn-out",

@@ -12,7 +12,8 @@ TF32 off for its products and convolutions.
 import pytest
 import torch
 
-from vista_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plain,
+from vista_tpu_torch.ops import _build
+from vista_tpu_torch.ops.attention import (SMALL_KEYS, attention_bwd, attention_bwd_plain,
                                            attention_forward, attention_packed,
                                            attention_plain)
 from vista_tpu_torch.ops.fused_ff import ff_bwd, ff_bwd_plain
@@ -127,16 +128,51 @@ def test_layer_norm(rnd, shape):
 
 
 @pytest.mark.parametrize("b,s_q,s_k,heads,valid_k", [
-    (3, 100, 130, 2, None), (3, 100, 130, 2, 77), (40, 25, 25, 5, None), (2, 300, 300, 1, 257)])
+    (3, 100, 130, 2, None), (3, 100, 130, 2, 77), (40, 25, 25, 5, None), (2, 300, 300, 1, 257),
+    (3, 1000, 1000, 5, None), (2, 2304, 2304, 10, None), (2, 640, 700, 5, 600),
+    (2, SMALL_KEYS, SMALL_KEYS, 1, None), (2, SMALL_KEYS + 1, SMALL_KEYS + 1, 1, None)])
 def test_attention_bwd(rnd, b, s_q, s_k, heads, valid_k):
+    """Both routes: more than SMALL_KEYS keys take the wgmma kernels."""
     q, k, v = rnd(b, s_q, heads * 64), rnd(b, s_k, heads * 64), rnd(b, s_k, heads * 64)
     do = rnd(b, s_q, heads * 64)
     o, lse = attention_forward(q, k, v, heads, valid_k, want_lse=True)
     ref_o, ref_lse = attention_plain(*_f32(q, k, v), heads, valid_k, want_lse=True)
     _check(o, ref_o)
     _check(lse, ref_lse)
+    _build.reset_counts()
     got = attention_bwd(q, k, v, o, lse, do, heads, valid_k)
+    route = "mma" if s_k <= SMALL_KEYS else "wgmma"
+    assert _build.LAUNCHES[f"attention_bwd:{route}"] == 1
     ref = attention_bwd_plain(*_f32(q, k, v, o, lse, do), heads, valid_k)
+    for g, r in zip(got, ref):
+        _check(g, r)
+
+
+@pytest.mark.parametrize("b,s,heads", [(2, 1000, 5), (40, 25, 5)])
+def test_attention_bwd_is_deterministic(rnd, b, s, heads):
+    """No atomics in the sums: two launches give the same bits."""
+    q, k, v, do = (rnd(b, s, heads * 64) for _ in range(4))
+    o, lse = attention_forward(q, k, v, heads, want_lse=True)
+    first = attention_bwd(q, k, v, o, lse, do, heads)
+    second = attention_bwd(q, k, v, o, lse, do, heads)
+    for t, u in zip(first, second):
+        assert torch.equal(t, u)
+
+
+@pytest.mark.parametrize("b,s,heads,route", [(2, 576, 5, "wgmma"), (30, 25, 5, "mma")])
+def test_attention_packed_backward_route(rnd, b, s, heads, route):
+    """A backward through attention_packed under autograd (the engine's
+    thread) takes the wgmma kernels at a spatial length and the mma.sync
+    ones at t = 25."""
+    q, k, v, gy = (rnd(b, s, heads * 64) for _ in range(4))
+    args = [t.requires_grad_() for t in (q, k, v)]
+    _build.reset_counts()
+    out = attention_packed(*args, heads)
+    got = torch.autograd.grad(out, args, gy)
+    assert _build.LAUNCHES[f"attention_bwd:{route}"] == 1
+    assert _build.LAUNCHES["attention_bwd"] == 1
+    o, lse = attention_plain(*_f32(q, k, v), heads, want_lse=True)
+    ref = attention_bwd_plain(*_f32(q, k, v), o, lse, gy.float(), heads)
     for g, r in zip(got, ref):
         _check(g, r)
 

@@ -37,21 +37,7 @@ constexpr int TG_A_BYTES = 2 * TG_BOX_BYTES;
 constexpr int TG_STAGE_BYTES = TG_A_BYTES + (TG_BN / 64) * TG_BOX_BYTES;
 constexpr int TG_SMEM = 1024 + TG_STAGES * TG_STAGE_BYTES + 16 * TG_STAGES;
 
-// One side's view of the ring: the stage it is at and that stage's phase.
-struct TgRing {
-  uint32_t base, full0, empty0;
-  int stage = 0;
-  uint32_t phase = 0;
-  __device__ uint32_t tile() const { return base + stage * TG_STAGE_BYTES; }
-  __device__ uint32_t full() const { return full0 + 8 * stage; }
-  __device__ uint32_t empty() const { return empty0 + 8 * stage; }
-  __device__ void advance() {
-    if (++stage == TG_STAGES) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
+using TgRing = Ring<TG_STAGES>;
 
 // Every thread calls it: the ring in dynamic shared memory (1024-aligned
 // for the swizzle), barriers initialised.
@@ -59,6 +45,7 @@ __device__ __forceinline__ TgRing tg_ring(uint8_t* smem_raw) {
   const uint32_t raw = smem_u32(smem_raw);
   TgRing r;
   r.base = (raw + 1023) & ~1023u;
+  r.bytes = TG_STAGE_BYTES;
   r.full0 = r.base + TG_STAGES * TG_STAGE_BYTES;
   r.empty0 = r.full0 + 8 * TG_STAGES;
   if (threadIdx.x == 0) {

@@ -12,8 +12,9 @@ Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc`` or a card.
 
 Launch counts: each kernel wrapper calls :func:`count` exactly where it
-launches its kernel, with the kernel's name and the call site, so a run can
-show that its main path went through the kernels.
+launches its kernel, with the kernel's name and the call site (and, for a
+kernel with more than one route, the route: ``"name:route"`` then counts
+too), so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -34,14 +35,16 @@ BUILD = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-# kernel name -> launches; "kernel/site" -> launches
+# kernel name (and "kernel:route") -> launches; "kernel/site" -> launches
 LAUNCHES: collections.Counter = collections.Counter()
 SITES: collections.Counter = collections.Counter()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
     "vk_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "vk_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P],
+    "vk_attention_bwd_prep": [_P] * 4 + [_I] * 4 + [_P],
+    "vk_attention_bwd": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "vk_attention_bwd_wgmma": [_P] * 8 + [_I] * 6 + [_F, _P],
     "vk_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
     "vk_conv3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vk_ff_bwd_dh": [_P] * 7 + [_I, _I, _I, _P],
@@ -60,9 +63,11 @@ _lib = None
 build_log = ""
 
 
-def count(kernel: str, site: str) -> None:
+def count(kernel: str, site: str, route: str | None = None) -> None:
     LAUNCHES[kernel] += 1
     SITES[f"{kernel}/{site}"] += 1
+    if route is not None:
+        LAUNCHES[f"{kernel}:{route}"] += 1
 
 
 def reset_counts() -> None:

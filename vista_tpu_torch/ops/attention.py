@@ -11,16 +11,20 @@ masks keys at or past it for callers that do pad.
 
 Backward (training): when an input requires grad, the forward also writes
 the fp32 log-sum-exp of each query row, ``(B, heads, S_q)`` (the JAX
-``want_lse`` path), and the backward runs ``csrc/attention_bwd.cu`` (FA2
-style: a ``D = rowsum(dO * O)`` pre-pass, a dK/dV kernel looping over query
+``want_lse`` path), and the backward runs ``csrc/attention_bwd.cu``: a
+pre-pass for ``D = rowsum(dO * O)``, a dK/dV kernel looping over query
 tiles and a dQ kernel looping over key tiles, both recomputing P from the
-saved LSE). It replaces the flash backward (``_bwd_dq_kernel``,
-``_bwd_dkv_kernel``) and the tiny backward (``_tiny_bwd_kernel``) alike; on
-CPU tensors :func:`attention_bwd_plain` computes the same in fp32.
+saved LSE. :func:`attention_bwd_plan` picks the route: the spatial sites
+(more than 64 keys) take the TMA + ``wgmma`` kernels (ports of
+``_bwd_dq_kernel``, ``_bwd_dkv_kernel`` and the spatial ``_tiny_bwd_kernel``);
+the temporal t = 25 attention and the 45-key mid site at 320x576 keep the
+``mma.sync`` kernels, which beat the library call there. On CPU tensors
+:func:`attention_bwd_plain` computes the same in fp32.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -30,6 +34,85 @@ from vista_tpu_torch.ops import _build
 
 HEAD_DIM = 64  # the only head width K1 is built for (the UNet's)
 _LOG2E = 1.4426950408889634
+
+# attention_bwd routes (csrc/attention_bwd.cu): at most SMALL_KEYS keys take
+# the mma.sync kernels (64-row tiles, 128 threads, static shared memory);
+# more take the wgmma kernels (blocks of 128 rows, two consumer warpgroups
+# and a producer warpgroup, a ring of WGMMA_STAGES stages of 128 rows).
+SMALL_KEYS = 64
+MMA_TILE, MMA_THREADS = 64, 128
+WGMMA_TILE, WGMMA_STAGES, WGMMA_THREADS = 128, 3, 384
+_BOX = WGMMA_TILE * HEAD_DIM * 2  # one 128 x 64 bf16 tile, bytes
+_BARRIERS = 8 * (1 + 2 * WGMMA_STAGES)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """What :func:`attention_bwd` launches for one shape. ``route`` is
+    ``"wgmma"`` or ``"mma"``. Both start with the pre-pass, 8 threads per
+    (batch row, head, query) in ``prep_blocks`` blocks of 256, writing the
+    fp32 (lse log2 e, D) pairs ``(b, heads, s_q_pad, 2)``; the grids are the
+    kernels' block counts (``(x, y)`` for the mma route, flat for the wgmma
+    one) and ``smem`` their dynamic shared memory in bytes (``{}`` for the
+    mma route, whose shared memory is static)."""
+
+    route: str
+    b: int
+    s_q: int
+    s_k: int
+    heads: int
+    kv_len: int
+    tile: int
+    threads: int
+    s_q_pad: int
+    dkv_grid: tuple
+    dq_grid: tuple
+    smem: dict
+
+    @property
+    def prep_blocks(self) -> int:
+        return -(-self.b * self.heads * self.s_q_pad * 8 // 256)
+
+    def dkv_block(self, i: int, y: int = 0):
+        """(batch row, head, first key) of dK/dV block ``i`` (``y`` the
+        grid's second index on the mma route), as the kernel decodes it."""
+        return self._decode(i, y, -(-self.s_k // self.tile))
+
+    def dq_block(self, i: int, y: int = 0):
+        """(batch row, head, first query) of dQ block ``i``."""
+        return self._decode(i, y, -(-self.s_q // self.tile))
+
+    def _decode(self, i, y, tiles):
+        if self.route == "mma":
+            return i // tiles, y, i % tiles * self.tile
+        bh = i // tiles
+        return bh // self.heads, bh % self.heads, i % tiles * self.tile
+
+
+def attention_bwd_plan(b: int, s_q: int, s_k: int, heads: int, kv_len: int,
+                       route: Optional[str] = None) -> BwdPlan:
+    """The route, tiles, grids and shared memory of :func:`attention_bwd` at
+    one shape, computed here so that the CPU tests check them. ``route``
+    forces a route (for measuring the crossover); by default more than
+    ``SMALL_KEYS`` keys take the wgmma kernels."""
+    if min(b, s_q, s_k, heads) < 1 or not 1 <= kv_len <= s_k:
+        raise ValueError(f"attention_bwd_plan: bad shape {(b, s_q, s_k, heads, kv_len)}")
+    route = route or ("mma" if s_k <= SMALL_KEYS else "wgmma")
+    shape = (b, s_q, s_k, heads, kv_len)
+    if route == "mma":
+        t = MMA_TILE
+        return BwdPlan(route, *shape, t, MMA_THREADS, s_q, (b * -(-s_k // t), heads),
+                       (b * -(-s_q // t), heads), {})
+    if route != "wgmma":
+        raise ValueError(f"attention_bwd_plan: unknown route {route!r}")
+    t = WGMMA_TILE
+    pad = -(-s_q // t) * t
+    # 1024 for the swizzle alignment, the two kept tiles, the ring (a dK/dV
+    # stage also holds 128 (lse, D) pairs), the barriers
+    smem = dict(dkv=1024 + 2 * _BOX + WGMMA_STAGES * (2 * _BOX + 8 * t) + _BARRIERS,
+                dq=1024 + 2 * _BOX + WGMMA_STAGES * 2 * _BOX + _BARRIERS)
+    return BwdPlan(route, *shape, t, WGMMA_THREADS, pad, (b * heads * -(-s_k // t),),
+                   (b * heads * (pad // t),), smem)
 
 
 def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -114,25 +197,61 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if want_lse else out
 
 
+def attention_bwd_prep(o, lse, do, plan: BwdPlan):
+    """The pre-pass alone: ``(lse log2 e, rowsum(dO * O))`` per query row and
+    head, fp32 ``(b, heads, plan.s_q_pad, 2)``, pad rows ``(+inf, 0)``."""
+    if _build.on_cpu(o, lse, do):
+        return attention_bwd_prep_plain(o, lse, do, plan)
+    rows = torch.empty(plan.b, plan.heads, plan.s_q_pad, 2, dtype=torch.float32,
+                       device=o.device)
+    _build.launch("vk_attention_bwd_prep", o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  rows.data_ptr(), plan.b, plan.s_q, plan.s_q_pad, plan.heads)
+    return rows
+
+
+def attention_bwd_prep_plain(o, lse, do, plan: BwdPlan):
+    """:func:`attention_bwd_prep` in fp32."""
+    s = plan.s_q
+    rows = torch.zeros(plan.b, plan.heads, plan.s_q_pad, 2, dtype=torch.float32,
+                       device=o.device)
+    rows[..., 0] = math.inf
+    rows[:, :, :s, 0] = lse.float() * _LOG2E
+    rows[:, :, :s, 1] = (_heads(do, plan.heads) * _heads(o, plan.heads)).sum(-1)
+    return rows
+
+
 def attention_bwd(q, k, v, o, lse, do, heads: int, valid_k: Optional[int] = None,
                   site: str = "spatial"):
     """dq, dk, dv: ``csrc/attention_bwd.cu`` on CUDA tensors, the plain
-    version on CPU tensors."""
+    version on CPU tensors. The route is :func:`attention_bwd_plan`'s: up
+    to ``SMALL_KEYS`` keys (the temporal t = 25 attention, the 45-key mid
+    site at 320x576) the mma.sync kernels, more keys the wgmma kernels;
+    the mma.sync ones are the faster below that line on an H100 (PERF.md
+    §6, "route crossover")."""
     if _build.on_cpu(q, k, v, do):
         return attention_bwd_plain(q, k, v, o, lse, do, heads, valid_k)
     _check_qkv(q, k, v, heads)
     b, s_q, hd = q.shape
-    s_k = k.shape[1]
     _build.check(o, "o", torch.bfloat16, (b, s_q, hd))
     _build.check(do, "do", torch.bfloat16, (b, s_q, hd))
     _build.check(lse, "lse", torch.float32, (b, heads, s_q))
-    delta = torch.empty_like(lse)
+    kv_len = _kv_len(k.shape[1], valid_k)
+    plan = attention_bwd_plan(b, s_q, k.shape[1], heads, kv_len)
+    out = attention_bwd_launch(q, k, v, o, lse, do, plan)
+    _build.count("attention_bwd", site, plan.route)
+    return out
+
+
+def attention_bwd_launch(q, k, v, o, lse, do, plan: BwdPlan):
+    """The pre-pass and the kernels of one plan's route on checked CUDA
+    tensors (uncounted: :func:`attention_bwd` counts; a benchmark may force
+    a route here)."""
+    rows = attention_bwd_prep(o, lse, do, plan)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _build.launch("vk_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s_q, s_k, heads,
-                  _kv_len(s_k, valid_k), HEAD_DIM ** -0.5)
-    _build.count("attention_bwd", site)
+    entry = "vk_attention_bwd" if plan.route == "mma" else "vk_attention_bwd_wgmma"
+    _build.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  rows.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), plan.b,
+                  plan.s_q, plan.s_k, plan.heads, plan.kv_len, plan.s_q_pad, HEAD_DIM ** -0.5)
     return dq, dk, dv
 
 
