@@ -72,7 +72,7 @@ KERNELS = {
                  "vista_tpu/ops/fused_ff.py:146 (_ff_kernel, LN+proj_in+GEGLU); "
                  "vista_tpu/ops/fused_temporal_attn.py:138 (LN+q/k/v)"),
     "linear_residual": dict(
-        route="cuda", source="vista_tpu_torch/csrc/linear_residual.cu",
+        route="cuda", source="vista_tpu_torch/csrc/linear_residual.cu with csrc/gemm_tma.cuh",
         replaces="vista_tpu/ops/fused_ff.py:146 (_ff_kernel, proj_out+residual); "
                  "vista_tpu/ops/fused_temporal_attn.py:138 (out-proj+residual)"),
     "gn_silu_conv3": dict(
@@ -88,10 +88,16 @@ KERNELS = {
                  "vista_tpu/ops/tiny_attention.py:201 (_tiny_bwd_kernel); "
                  "vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, softmax backward)"),
     "ff_bwd": dict(
-        route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu with csrc/qkv_bwd.cu (vk_seg_gemm), "
-                             "csrc/gemm_tma.cuh and csrc/layer_norm.cu",
+        route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu (ff_bwd_dh, vk_ln_bwd, vk_wgrad) "
+                             "with csrc/qkv_bwd.cu (vk_seg_gemm), csrc/gemm_tma.cuh and "
+                             "csrc/layer_norm.cu",
         replaces="vista_tpu/ops/fused_ff.py:307 (_ff_bwd_kernel); "
                  "vista_tpu/ops/fused_ff.py:434 (_ff_bwd_wide_kernel)"),
+    "ff_bwd_dh": dict(
+        route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu (ff_bwd_dh_tma_kernel) with "
+                             "csrc/gemm_tma.cuh",
+        replaces="vista_tpu/ops/fused_ff.py:307 (_ff_bwd_kernel, dh and hg); "
+                 "vista_tpu/ops/fused_ff.py:434 (_ff_bwd_wide_kernel, dh and hg)"),
     "conv3": dict(
         route="cuda", source="vista_tpu_torch/csrc/gn_silu_conv3.cu (vk_conv3)",
         replaces="vista_tpu/ops/temporal_conv.py:155 (_conv3_kernel)"),
@@ -110,7 +116,7 @@ KERNELS = {
 }
 SAMPLE_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3")
 TRAIN_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3",
-                 "layer_norm", "attention_bwd", "ff_bwd", "conv3")
+                 "layer_norm", "attention_bwd", "ff_bwd", "ff_bwd_dh", "conv3")
 PHASE1_KERNELS = TRAIN_KERNELS + ("qkv_bwd", "linear_residual_bwd")
 # both routes of attention_bwd run on each training path: wgmma at the
 # spatial sites, mma.sync at the temporal ones
@@ -124,7 +130,7 @@ ATTENTION_BWD_ROUTES = ("attention_bwd:wgmma", "attention_bwd:mma")
 SYMBOLS = {
     "attention": ("vk::attention_kernel<",),
     "ln_linear": ("vk::ln_linear_kernel", "vk::ln_stats_kernel"),
-    "linear_residual": ("vk::linear_residual_kernel",),
+    "linear_residual": ("vk::linear_residual_tma_kernel",),
     "gn_silu_conv3": ("vk::gn_silu_conv3_kernel<true>",),
     "conv3": ("vk::gn_silu_conv3_kernel<false>",),
     "layer_norm": ("vk::layer_norm_kernel",),
@@ -132,7 +138,7 @@ SYMBOLS = {
     "attention_bwd dQ (wgmma)": ("vk::attn_bwd_dq_wgmma",),
     "attention_bwd prep (lse, D)": ("vk::attn_bwd_prep",),
     "attention_bwd (mma.sync, Sk <= 64)": ("vk::attn_bwd_",),
-    "ff_bwd_dh": ("vk::ff_bwd_dh_kernel",),
+    "ff_bwd_dh": ("vk::ff_bwd_dh_tma_kernel",),
     "seg_gemm (dxn of ff_bwd, qkv_bwd; K3 da)": ("vk::seg_gemm_tma_kernel",),
     "vk_wgrad (split-K dW of ff_bwd, qkv_bwd, K3)": ("vk::wgrad_tma_kernel",),
     "ln_bwd + col sums + split sums": ("vk::ln_bwd_kernel", "vk::col_sum_kernel",
@@ -360,6 +366,19 @@ def kernel_checks():
                       2 * m * c * c, 2 * (3 * m * c + c * c),
                       lambda: time_ms(lambda: torch.addmm(b2b, o, wo.t()) + x))
         del x, o
+    # K3 at the temporal out-projection, ds2 576x1024: (2 h w rows, 25
+    # frames, 640) of the doubled batch
+    x, o = rnd(4608, 25, 640), rnd(4608, 25, 640)
+    wo, bo = rnd(640, 640, std=640 ** -0.5), rnd(640, std=0.1, dtype=torch.float32)
+    bob = bo.to(bf)
+    m, c = 4608 * 25, 640
+    ok &= compare("linear_residual", f"temporal out (4608,25,{c})->{c}",
+                  lambda: linear_residual(o, wo, bo, x),
+                  lambda: linear_residual_plain(o, wo, bo, x),
+                  lambda: linear_residual_plain(*f32(o, wo, bo, x)), rows,
+                  2 * m * c * c, 2 * (3 * m * c + c * c),
+                  lambda: time_ms(lambda: torch.addmm(bob, o.view(m, c), wo.t()).view(o.shape) + x))
+    del x, o
     # K2 at c = 640 (ds2 rows, 576x1024), and split at ds1 on a residual
     # stream that is not zero-mean (x + 4, std 1), as the UNet's are.
     for m, c, shift in [(50 * 2304, 640, 0.0), (50 * 9216, 320, 4.0)]:
@@ -658,13 +677,22 @@ SEG_GEMM_SHAPES = [(3, 230400, 320, 320, torch.float32, "qkv dxn ds1"),
                    (3, 14400, 1280, 1280, torch.float32, "qkv dxn ds4")]
 
 
+# ff_bwd_dh as (M, c), inner 4c: the phase-1 widths (576x1024: ds1, ds2,
+# ds4 rows) and the phase-2 ones (320x576)
+FF_BWD_DH_SHAPES = [(230400, 320, "ds1 576x1024"), (57600, 640, "ds2 576x1024"),
+                    (14400, 1280, "ds4 576x1024"), (72000, 320, "ds1 320x576"),
+                    (4500, 1280, "ds4 320x576")]
+
+
 def primitive_checks(rnd, rows):
     """The two GEMMs under ff_bwd, qkv_bwd and K3's backward, each alone:
     ``weight_grad`` (vk_wgrad + the split sum, fp32 out) and ``seg_gemm``
     against their fp32 plain versions, with one cuBLAS call of the same
     product in bf16 as the yardstick (``torch.mm``, which writes bf16 where
     vk_wgrad and the fp32 seg_gemm rows write fp32; the segments laid out
-    as one (M, segs * k) operand for it beforehand)."""
+    as one (M, segs * k) operand for it beforehand); then ff_bwd's first
+    step, ``ff_bwd_dh``, alone (no one library call computes it)."""
+    from vista_tpu_torch.ops.fused_ff import ff_bwd_dh, ff_bwd_dh_plain
     from vista_tpu_torch.ops.linear import (seg_gemm, seg_gemm_plain, weight_grad,
                                             weight_grad_plain)
 
@@ -689,6 +717,17 @@ def primitive_checks(rnd, rows):
                       2 * m * segs * k * n, 2 * (m * segs * k + segs * k * n) + out_bytes * m * n,
                       lambda: time_ms(lambda: torch.mm(flat, w)))
         del a, w, flat
+    for m, c, use in FF_BWD_DH_SHAPES:
+        xn, dy = rnd(m, c), rnd(m, c)
+        w1, b1 = rnd(8 * c, c, std=c ** -0.5), rnd(8 * c, std=0.1, dtype=torch.float32)
+        w2 = rnd(c, 4 * c, std=(4 * c) ** -0.5)
+        # xn, dy, W1, W2 in; hg (M, 4c) and dH (M, 8c) out; b1 fp32
+        ok &= compare("ff_bwd_dh", f"({m},{c}) {use}, hg and dH",
+                      lambda: ff_bwd_dh(xn, dy, w1, b1, w2),
+                      lambda: ff_bwd_dh_plain(xn, dy, w1, b1, w2),
+                      lambda: ff_bwd_dh_plain(*[t.float() for t in (xn, dy, w1, b1, w2)]), rows,
+                      24 * m * c * c, 2 * (2 * m * c + 12 * c * c + 12 * m * c) + 32 * c)
+        del xn, dy
     torch.cuda.empty_cache()
     return ok
 
@@ -1240,10 +1279,22 @@ def phase1_reference(seed):
         raise SystemExit("the small phase-1 step disagrees with the CPU reference")
 
 
+_HASH_P = 2 ** 31 - 1  # a prime: every product below stays under 2^62
+
+
 def checksums(tensors):
-    """One int64 sum of the raw bits per tensor (one host sync): a change of
-    any value changes it, short of a cancellation."""
-    return torch.stack([t.view(torch.int32).sum(dtype=torch.int64) for t in tensors]).cpu()
+    """One hash of the raw bits per tensor (one host sync): the sum mod p of
+    each element's bits times a weight drawn from its index (Knuth's
+    multiplicative hash), so a change of any value changes it except with
+    probability about 1/p = 5e-10. A plain sum of the bits cancels far more
+    often: the EMA of a GroupNorm weight that moved in 1279 of its 1280
+    elements summed to the same value."""
+    out = []
+    for t in tensors:
+        bits = t.reshape(-1).view(torch.int32).to(torch.int64) % _HASH_P
+        w = torch.arange(bits.numel(), device=t.device, dtype=torch.int64) * 2654435761 % _HASH_P
+        out.append((bits * (w + 1) % _HASH_P).sum())
+    return torch.stack(out).cpu()
 
 
 def phase1_run(seed):

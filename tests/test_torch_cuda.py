@@ -16,7 +16,7 @@ from vista_tpu_torch.ops import _build
 from vista_tpu_torch.ops.attention import (SMALL_KEYS, attention_bwd, attention_bwd_plain,
                                            attention_forward, attention_packed,
                                            attention_plain)
-from vista_tpu_torch.ops.fused_ff import ff_bwd, ff_bwd_plain
+from vista_tpu_torch.ops.fused_ff import ff_bwd, ff_bwd_dh, ff_bwd_dh_plain, ff_bwd_plain
 from vista_tpu_torch.ops.fused_temporal_attn import (fused_temporal_self_attn,
                                                      fused_temporal_self_attn_bwd_plain)
 from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_bwd,
@@ -106,6 +106,24 @@ def test_linear_residual(rnd):
     _check(linear_residual(a, w, b, res), linear_residual_plain(*_f32(a, w, b, res)))
 
 
+# (m, k, n): ragged m at every UNet width n = c with k = c (attn-out,
+# temporal-out) and k = 4c (FF-out), and small widths with a ragged k
+@pytest.mark.parametrize("m,k,n", [(1000, 320, 320), (777, 1280, 320), (300, 640, 640),
+                                   (515, 2560, 640), (129, 1280, 1280), (260, 5120, 1280),
+                                   (70, 96, 64), (200, 200, 8)])
+def test_linear_residual_shapes(rnd, m, k, n):
+    a, w, res = rnd(m, k), rnd(n, k, std=k ** -0.5), rnd(m, n)
+    b = rnd(n, std=0.1, dtype=torch.float32)
+    _check(linear_residual(a, w, b, res), linear_residual_plain(*_f32(a, w, b, res)))
+
+
+def test_linear_residual_is_deterministic(rnd):
+    """No split-K: two launches give the same bits."""
+    a, w, res = rnd(3000, 1280), rnd(320, 1280, std=1280 ** -0.5), rnd(3000, 320)
+    b = rnd(320, std=0.1, dtype=torch.float32)
+    assert torch.equal(linear_residual(a, w, b, res), linear_residual(a, w, b, res))
+
+
 @pytest.mark.parametrize("cout,epilogue", [(96, "emb"), (64, "res")])
 def test_gn_silu_conv3(rnd, cout, epilogue):
     t, bt, s, cin = 5, 10, 45, 64
@@ -187,6 +205,37 @@ def test_ff_bwd(rnd, m, c):
     ref = ff_bwd_plain(*_f32(x, lw, lb, w1, b1, w2, dy))
     for g, r in zip(got, ref):
         _check(g, r)
+
+
+@pytest.mark.parametrize("m,c", [(461, 64), (1000, 96), (777, 320)])
+def test_ff_bwd_ragged(rnd, m, c):
+    x, dy = rnd(m, c), rnd(m, c)
+    lw, lb = 1 + rnd(c, std=0.1, dtype=torch.float32), rnd(c, std=0.1, dtype=torch.float32)
+    w1, b1 = rnd(8 * c, c, std=c ** -0.5), rnd(8 * c, std=0.1, dtype=torch.float32)
+    w2 = rnd(c, 4 * c, std=(4 * c) ** -0.5)
+    got = ff_bwd(x, lw, lb, w1, b1, w2, dy)
+    ref = ff_bwd_plain(*_f32(x, lw, lb, w1, b1, w2, dy))
+    for g, r in zip(got, ref):
+        _check(g, r)
+
+
+@pytest.mark.parametrize("m,c", [(130, 96), (777, 320), (300, 1280)])
+def test_ff_bwd_dh(rnd, m, c):
+    xn, dy = rnd(m, c), rnd(m, c)
+    w1, b1 = rnd(8 * c, c, std=c ** -0.5), rnd(8 * c, std=0.1, dtype=torch.float32)
+    w2 = rnd(c, 4 * c, std=(4 * c) ** -0.5)
+    for g, r in zip(ff_bwd_dh(xn, dy, w1, b1, w2), ff_bwd_dh_plain(*_f32(xn, dy, w1, b1, w2))):
+        _check(g, r)
+
+
+def test_ff_bwd_dh_is_deterministic(rnd):
+    m, c = 3000, 320
+    xn, dy = rnd(m, c), rnd(m, c)
+    w1, b1 = rnd(8 * c, c, std=c ** -0.5), rnd(8 * c, std=0.1, dtype=torch.float32)
+    w2 = rnd(c, 4 * c, std=(4 * c) ** -0.5)
+    first, second = (ff_bwd_dh(xn, dy, w1, b1, w2) for _ in range(2))
+    for t, u in zip(first, second):
+        assert torch.equal(t, u)
 
 
 @pytest.mark.parametrize("cout,with_bias", [(96, True), (64, False)])

@@ -1,8 +1,10 @@
 // Shared pieces of the hand-written Hopper kernels: bf16 tensor-core MMA
 // (mma.sync m16n8k16, fp32 accumulate), fragment loads from shared memory,
-// and a 128x128x32 block-tile GEMM main loop whose A- and B-tile loaders are
-// supplied by each kernel (that is where the LayerNorm and GroupNorm+SiLU
-// prologues live).
+// bf16 packing, the erf GELU and its derivative, and a 128x128x32 block-tile
+// GEMM main loop whose A- and B-tile loaders are supplied by the kernel.
+// That main loop now serves K4 alone (csrc/gn_silu_conv3.cu, where the
+// GroupNorm + SiLU prologue lives in the A loader); the GEMMs of K2, K3 and
+// the backward kernels run on TMA + wgmma (csrc/hopper.cuh, gemm_tma.cuh).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
@@ -71,6 +73,32 @@ __device__ __forceinline__ uint4 pack8(const float f[8]) {
   v.z = pack_bf16(f[4], f[5]);
   v.w = pack_bf16(f[6], f[7]);
   return v;
+}
+
+// GELU with erf evaluated by Abramowitz-Stegun 7.1.26: |error in erf| <
+// 1.5e-7, so |error in gelu(x)| < 1e-7 |x|, fp32 accuracy (the tanh form is
+// off by up to 1e-3). One reciprocal and one exponential instead of erff's
+// branches: K2's GEGLU epilogue and ff_bwd_dh evaluate it M x N times.
+__device__ __forceinline__ float erf_tail(float z) {  // 1 - erf(z) = p(z) exp(-z^2), z >= 0
+  const float t = __fdividef(1.f, fmaf(0.3275911f, z, 1.f));
+  return t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f),
+                                  1.421413741f), -0.284496736f), 0.254829592f);
+}
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  const float z = fabsf(x) * 0.7071067811865476f;
+  const float e = 1.f - erf_tail(z) * __expf(-z * z);
+  return 0.5f * x * (1.f + copysignf(e, x));
+}
+
+// gelu(x), and gelu'(x) = Phi(x) + x phi(x) into `grad`: the erf's
+// exp(-z^2) = exp(-x^2 / 2) is phi's too, so one exponential serves both.
+__device__ __forceinline__ float gelu_erf_with_grad(float x, float& grad) {
+  const float z = fabsf(x) * 0.7071067811865476f;
+  const float ex = __expf(-z * z);
+  const float cdf = 0.5f * (1.f + copysignf(1.f - erf_tail(z) * ex, x));
+  grad = fmaf(x * 0.3989422804014327f, ex, cdf);
+  return x * cdf;
 }
 
 // ---- block-tile GEMM: C[128 x 128] = A[128 x K] * B[128 x K]^T ----

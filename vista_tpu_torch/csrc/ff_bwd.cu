@@ -9,10 +9,18 @@
 //
 //   0. xn = LN(x) in bf16 (csrc/layer_norm.cu, the caller launches it);
 //   1. ff_bwd_dh: per (128 rows, 64 inner columns) tile, recompute
-//      [a | g] = xn W1^T + b1 (W1 rows of a value column and its gate
-//      interleaved, as in K2) and dhg = dy W2 in a second main loop, then
-//      hg = a * gelu(g), da = dhg * gelu(g), dg = dhg * a * gelu'(g);
-//      writes hg (M, 4c) and dH = [da | dg] (M, 8c), bf16;
+//      [a | g] = xn W1^T + b1 and dhg = dy W2, then hg = a * gelu(g),
+//      da = dhg * gelu(g), dg = dhg * a * gelu'(g); writes hg (M, 4c) and
+//      dH = [da | dg] (M, 8c), bf16. On the TMA + wgmma skeleton of
+//      csrc/gemm_tma.cuh: the ring streams two runs of stages per tile,
+//      (xn, the tile's W1 value and gate rows) read K-major through one 3-d
+//      box over W1 seen as (2, 4c, c), as K2 reads it, then (dy, W2's
+//      columns) with W2 (c, 4c) read as stored, MN-major. A consumer
+//      warpgroup holds [a | g] (m64n128) and dhg (m64n64), 96 fp32 a
+//      thread; a 128-column tile would need 192 and leave no room for the
+//      epilogue's staging. The epilogue stages hg, da and dg as 64 x 64
+//      boxes in shared memory and stores them with TMA, under the next
+//      tile's products;
 //   2. dxn = dH W1 (fp32, M x c), the product feeding the LN backward,
 //      which needs whole rows: vk_seg_gemm of csrc/qkv_bwd.cu with one
 //      segment (the caller launches it);
@@ -38,74 +46,138 @@
 
 namespace vk {
 
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
-}
+// 1. hg and dH. Ring stages of 32 KB: A (xn or dy, 128 rows x 64 of depth)
+// at 0, then W1's 64 value and 64 gate rows of the tile (16 KB, K-major) or
+// W2's 64 of depth x 64 columns (8 KB, MN-major).
+constexpr int FB_NI = 64;  // inner columns of a tile
+constexpr int FB_STAGES = 5;
+constexpr int FB_W1_BYTES = 2 * FB_NI * TG_BK * 2;
+constexpr int FB_W2_BYTES = FB_NI * TG_BK * 2;
+constexpr int FB_STAGE_BYTES = TG_A_BYTES + FB_W1_BYTES;
+constexpr int FB_STG_BYTES = 2 * 3 * TG_BOX_BYTES;  // hg, da and dg boxes of both warpgroups
+constexpr int FB_SMEM = 1024 + FB_STAGES * FB_STAGE_BYTES + FB_STG_BYTES + 16 * FB_STAGES;
+static_assert(FB_NI == 64, "one 64-column box per output of a tile");
 
-__device__ __forceinline__ float gelu_erf_grad(float x) {
-  return 0.5f * (1.f + erff(x * 0.7071067811865476f)) +
-         x * 0.3989422804014327f * __expf(-0.5f * x * x);
-}
+struct FbGateAcc {  // [a | g], 64 x 128: value columns 0..63, gates 64..127
+  float d[64];
+  template <bool A_MN, bool B_MN>
+  __device__ __forceinline__ void mma(uint64_t da, uint32_t b_tile, int kk, int acc_in) {
+    wgmma_m64n128k16_ss<A_MN ? 1 : 0, B_MN ? 1 : 0>(d, da, tg_desc<B_MN>(b_tile, kk), acc_in);
+  }
+  __device__ __forceinline__ void fence() {
+#pragma unroll
+    for (int e = 0; e < 64; ++e) reg_fence(d[e]);
+  }
+};
 
-// 1. hg and dH; xn, dy (M, C); w1 (2N, C); w2t = W2^T (N, C); b1 (2N) fp32.
-__global__ void __launch_bounds__(GEMM_THREADS)
-ff_bwd_dh_kernel(const bf16* __restrict__ xn, const bf16* __restrict__ dy,
-                 const bf16* __restrict__ w1, const bf16* __restrict__ w2t,
-                 const float* __restrict__ b1, bf16* __restrict__ hg,
-                 bf16* __restrict__ dh, int M, int C, int N) {
-  __shared__ __align__(16) GemmSmem sm;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.x * BM, o0 = blockIdx.y * (BN / 2);
-  auto rows_of = [&](const bf16* a) {
-    return [=](int row, int k) -> uint4 {
-      const int m = m0 + row;
-      if (m >= M) return make_uint4(0, 0, 0, 0);
-      return *reinterpret_cast<const uint4*>(a + (size_t)m * C + k);
-    };
-  };
-  // Tile column 32 * wn + l: inner column o0 + 16 * wn + (l % 16); for the
-  // first product, l < 16 reads its value row of W1 and l >= 16 its gate
-  // row; for the second, both halves read the same row of W2^T.
-  auto w1_rows = [&](int row, int k) -> uint4 {
-    const int l = row & 31, o = o0 + (row >> 5) * 16 + (l & 15);
-    const int src = l < 16 ? o : N + o;
-    return *reinterpret_cast<const uint4*>(w1 + (size_t)src * C + k);
-  };
-  auto w2_rows = [&](int row, int k) -> uint4 {
-    const int o = o0 + (row >> 5) * 16 + (row & 15);
-    return *reinterpret_cast<const uint4*>(w2t + (size_t)o * C + k);
-  };
-  float acc[4][4][4], dacc[4][4][4];
-  gemm_mainloop(C, rows_of(xn), w1_rows, sm, acc);
-  gemm_mainloop(C, rows_of(dy), w2_rows, sm, dacc);
+struct FbDhgAcc {  // dhg, 64 x 64
+  float d[32];
+  template <bool A_MN, bool B_MN>
+  __device__ __forceinline__ void mma(uint64_t da, uint32_t b_tile, int kk, int acc_in) {
+    wgmma_m64n64k16_ss<A_MN ? 1 : 0, B_MN ? 1 : 0>(d, da, tg_desc<B_MN>(b_tile, kk), acc_in);
+  }
+  __device__ __forceinline__ void fence() {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) reg_fence(d[e]);
+  }
+};
 
-  const int g = lane >> 2, t = lane & 3, wm = warp >> 2, wn = warp & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 64 + i * 16 + g + half * 8;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int o = o0 + wn * 16 + j * 8 + t * 2;
-        float h[2], da[2], dg[2];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const float a = acc[i][j][half * 2 + q] + b1[o + q];
-          const float gt = acc[i][j + 2][half * 2 + q] + b1[N + o + q];
-          const float dhg = dacc[i][j][half * 2 + q];
-          const float ge = gelu_erf(gt);
-          h[q] = a * ge;
-          da[q] = dhg * ge;
-          dg[q] = dhg * a * gelu_erf_grad(gt);
+__global__ void __launch_bounds__(TG_THREADS, 1)
+ff_bwd_dh_tma_kernel(__grid_constant__ const CUtensorMap tm_xn,
+                     __grid_constant__ const CUtensorMap tm_dy,
+                     __grid_constant__ const CUtensorMap tm_w1,
+                     __grid_constant__ const CUtensorMap tm_w2,
+                     __grid_constant__ const CUtensorMap tm_hg,
+                     __grid_constant__ const CUtensorMap tm_dh, const float* __restrict__ b1,
+                     int M, int C, int N) {
+  extern __shared__ uint8_t smem_raw[];
+  // ring | staging (warpgroup 0's three boxes, then 1's) | ring barriers
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t stg0 = ((raw + 1023) & ~1023u) + FB_STAGES * FB_STAGE_BYTES;
+  Ring<FB_STAGES> ring = tg_ring<FB_STAGES>(smem_raw, FB_STAGE_BYTES, FB_STG_BYTES);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tn = N / FB_NI, items = (M + TG_BM - 1) / TG_BM * tn;
+  const int stages = (C + TG_BK - 1) / TG_BK;  // per run
+
+  if (warp >= TG_CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (warp == TG_CONSUMER_WARPS && lane == 0) {
+      tma_prefetch_map(&tm_xn);
+      tma_prefetch_map(&tm_dy);
+      tma_prefetch_map(&tm_w1);
+      tma_prefetch_map(&tm_w2);
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int m0 = item / tn * TG_BM, n0 = item % tn * FB_NI;
+        for (int i = 0; i < stages; ++i) {
+          tg_acquire(ring, TG_A_BYTES + FB_W1_BYTES);
+          tma_load_2d(ring.tile(), &tm_xn, ring.full(), i * TG_BK, m0);
+          tma_load_3d(ring.tile() + TG_A_BYTES, &tm_w1, ring.full(), i * TG_BK, n0, 0);
+          ring.advance();
         }
-        *reinterpret_cast<uint32_t*>(hg + (size_t)m * N + o) = pack_bf16(h[0], h[1]);
-        *reinterpret_cast<uint32_t*>(dh + (size_t)m * 2 * N + o) = pack_bf16(da[0], da[1]);
-        *reinterpret_cast<uint32_t*>(dh + (size_t)m * 2 * N + N + o) =
-            pack_bf16(dg[0], dg[1]);
+        for (int i = 0; i < stages; ++i) {
+          tg_acquire(ring, TG_A_BYTES + FB_W2_BYTES);
+          tma_load_2d(ring.tile(), &tm_dy, ring.full(), i * TG_BK, m0);
+          tma_load_2d(ring.tile() + TG_A_BYTES, &tm_w2, ring.full(), n0, i * TG_BK);
+          ring.advance();
+        }
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int wg = warp >> 2, row = 16 * (warp & 3) + (lane >> 2), t = lane & 3;
+    const bool leader = (threadIdx.x & 127) == 0;  // stores the warpgroup's boxes
+    const uint32_t stg = stg0 + wg * 3 * TG_BOX_BYTES;  // hg, da, dg
+    uint8_t* stg_ptr = smem_raw + (stg - raw);
+    if (leader) {
+      tma_prefetch_map(&tm_hg);
+      tma_prefetch_map(&tm_dh);
+    }
+    FbGateAcc ag;
+    FbDhgAcc dd;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int m0 = item / tn * TG_BM, n0 = item % tn * FB_NI;
+      tg_mainloop<false, false>(ring, ag, stages, wg, lane);
+      tg_mainloop<false, true>(ring, dd, stages, wg, lane);
+      if (leader) bulk_wait_read<0>();  // the previous tile's stores have read the boxes
+      bar_named(1 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int o = n0 + 8 * j + 2 * t;
+        const float2 ba = *reinterpret_cast<const float2*>(b1 + o);
+        const float2 bg = *reinterpret_cast<const float2*>(b1 + N + o);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float h[2], da[2], dg[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float a = ag.d[4 * j + 2 * i + e] + (e ? ba.y : ba.x);
+            const float g = ag.d[4 * (j + 8) + 2 * i + e] + (e ? bg.y : bg.x);
+            const float dhg = dd.d[4 * j + 2 * i + e];
+            float gp;
+            const float ge = gelu_erf_with_grad(g, gp);
+            h[e] = a * ge;
+            da[e] = dhg * ge;
+            dg[e] = dhg * a * gp;
+          }
+          const uint32_t off = sw128(row + 8 * i, j) + 4 * t;
+          *reinterpret_cast<uint32_t*>(stg_ptr + off) = pack_bf16(h[0], h[1]);
+          *reinterpret_cast<uint32_t*>(stg_ptr + TG_BOX_BYTES + off) = pack_bf16(da[0], da[1]);
+          *reinterpret_cast<uint32_t*>(stg_ptr + 2 * TG_BOX_BYTES + off) =
+              pack_bf16(dg[0], dg[1]);
+        }
+      }
+      fence_async_smem();
+      bar_named(1 + wg, 128);
+      if (leader) {
+        const int r0 = m0 + 64 * wg;
+        tma_store_2d(&tm_hg, stg, n0, r0);
+        tma_store_2d(&tm_dh, stg + TG_BOX_BYTES, n0, r0);
+        tma_store_2d(&tm_dh, stg + 2 * TG_BOX_BYTES, N + n0, r0);
+        bulk_commit();
+      }
+    }
+    if (leader) bulk_wait<0>();
+  }
 }
 
 // 3. LayerNorm backward; one warp per row, rows [r0, r1) per block; a row of
@@ -266,7 +338,7 @@ wgrad_tma_kernel(__grid_constant__ const CUtensorMap tm_a,
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
       int split, s, n10, n20;
       decode(item, split, s, n10, n20);
-      tg_mainloop<true>(ring, acc, token_stages(split), wg, lane);
+      tg_mainloop<true, true>(ring, acc, token_stages(split), wg, lane);
       float* dst = part + ((size_t)split * segs + s) * N1 * N2;
       tg_epilogue(acc, wg, warp & 3, lane, [&](int r, int c, float v0, float v1) {
         const int n1 = n10 + r, n2 = n20 + c;
@@ -307,15 +379,46 @@ sum_splits_kernel(const float* __restrict__ part, T* __restrict__ out, int S, lo
 
 using vk::bf16;
 
-// 1. xn, dy (M, C); w1 (2N, C); w2t (N, C); b1 (2N) fp32 -> hg (M, N),
-// dh (M, 2N). C % 32 == 0, N % 64 == 0.
-extern "C" int vk_ff_bwd_dh(const void* xn, const void* dy, const void* w1,
-                            const void* w2t, const void* b1, void* hg,
-                            void* dh, int M, int C, int N, void* stream) {
-  dim3 grid((M + vk::BM - 1) / vk::BM, N / (vk::BN / 2));
-  vk::ff_bwd_dh_kernel<<<grid, vk::GEMM_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)xn, (const bf16*)dy, (const bf16*)w1, (const bf16*)w2t,
-      (const float*)b1, (bf16*)hg, (bf16*)dh, M, C, N);
+// 1. xn, dy (M, C) bf16; w1 (2N, C) bf16, [value; gate] rows; w2 (C, N) bf16
+// as stored; b1 (2N) fp32 -> hg (M, N), dh (M, 2N) bf16, on `grid`
+// persistent blocks (ops/fused_ff.py ff_bwd_dh_plan). C % 8 == 0,
+// N % 64 == 0; every tensor 16-byte aligned.
+extern "C" int vk_ff_bwd_dh(const void* xn, const void* dy, const void* w1, const void* w2,
+                            const void* b1, void* hg, void* dh, int M, int C, int N, int grid,
+                            void* stream) {
+  using namespace vk;
+  if (M <= 0 || C <= 0 || C % 8 || N <= 0 || N % FB_NI || grid <= 0 ||
+      ((uintptr_t)xn | (uintptr_t)dy | (uintptr_t)w1 | (uintptr_t)w2 | (uintptr_t)hg |
+       (uintptr_t)dh) % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_xn, tm_dy, tm_w1, tm_w2, tm_hg, tm_dh;
+  const uint64_t x_dims[2] = {(uint64_t)C, (uint64_t)M};
+  const uint64_t x_strides[1] = {(uint64_t)C * 2};
+  const uint32_t x_box[2] = {TG_BK, TG_BM};
+  // W1 as (planes, rows, C): the value and gate rows of a tile in one box
+  const uint64_t w1_dims[3] = {(uint64_t)C, (uint64_t)N, 2};
+  const uint64_t w1_strides[2] = {(uint64_t)C * 2, (uint64_t)N * C * 2};
+  const uint32_t w1_box[3] = {TG_BK, FB_NI, 2};
+  const uint64_t w2_dims[2] = {(uint64_t)N, (uint64_t)C};
+  const uint64_t w2_strides[1] = {(uint64_t)N * 2};
+  const uint32_t w2_box[2] = {FB_NI, TG_BK};
+  const uint64_t hg_dims[2] = {(uint64_t)N, (uint64_t)M};
+  const uint64_t hg_strides[1] = {(uint64_t)N * 2};
+  const uint64_t dh_dims[2] = {(uint64_t)2 * N, (uint64_t)M};
+  const uint64_t dh_strides[1] = {(uint64_t)N * 4};
+  const uint32_t o_box[2] = {64, 64};
+  if (!make_tmap_bf16(&tm_xn, xn, 2, x_dims, x_strides, x_box) ||
+      !make_tmap_bf16(&tm_dy, dy, 2, x_dims, x_strides, x_box) ||
+      !make_tmap_bf16(&tm_w1, w1, 3, w1_dims, w1_strides, w1_box) ||
+      !make_tmap_bf16(&tm_w2, w2, 2, w2_dims, w2_strides, w2_box) ||
+      !make_tmap_bf16(&tm_hg, hg, 2, hg_dims, hg_strides, o_box) ||
+      !make_tmap_bf16(&tm_dh, dh, 2, dh_dims, dh_strides, o_box))
+    return (int)cudaErrorInvalidValue;
+  if (cudaError_t e = cudaFuncSetAttribute(ff_bwd_dh_tma_kernel,
+                                            cudaFuncAttributeMaxDynamicSharedMemorySize, FB_SMEM))
+    return (int)e;
+  ff_bwd_dh_tma_kernel<<<grid, TG_THREADS, FB_SMEM, (cudaStream_t)stream>>>(
+      tm_xn, tm_dy, tm_w1, tm_w2, tm_hg, tm_dh, (const float*)b1, M, C, N);
   return (int)cudaGetLastError();
 }
 

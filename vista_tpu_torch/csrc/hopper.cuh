@@ -127,6 +127,15 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 // TMA store of a box from shared memory (the async proxy reads it: fence
 // the generic writes first), in a bulk group; rows and columns out of range
 // are dropped.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
                                              int c1, int c2) {
   asm volatile(

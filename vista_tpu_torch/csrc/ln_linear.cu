@@ -50,7 +50,7 @@
 //     instead; the kernel is chosen by shape. Scattered 4-byte stores
 //     straight from the accumulator layout cost more than the products here.
 //   - GEGLU's erf is a rational approximation with one reciprocal and one
-//     exponential (below), cheaper than erff's branches. The GEGLU epilogue
+//     exponential (common.cuh), cheaper than erff's branches. The GEGLU epilogue
 //     does not overlap the products (both warpgroups reach it together):
 //     with the LayerNorm in the A path it is what keeps GEGLU near the
 //     library call's time. A ping-pong variant (warpgroups on alternate
@@ -129,19 +129,6 @@ __device__ __forceinline__ void load_a_frag(uint32_t (&f)[4], uint32_t a_tile, u
   f[1] = ln_pair(f[1], st1, p0);
   f[2] = ln_pair(f[2], st0, p1);
   f[3] = ln_pair(f[3], st1, p1);
-}
-
-// GELU with erf evaluated by Abramowitz-Stegun 7.1.26: |error in erf| <
-// 1.5e-7, so |error in gelu(x)| < 1e-7 |x|, fp32 accuracy (the tanh form is
-// off by up to 1e-3). One reciprocal and one exponential instead of erff's
-// branches: the GEGLU epilogue evaluates it M x N times.
-__device__ __forceinline__ float gelu_erf(float x) {
-  const float z = fabsf(x) * 0.7071067811865476f;
-  const float t = __fdividef(1.f, fmaf(0.3275911f, z, 1.f));
-  const float p = t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f),
-                                           1.421413741f), -0.284496736f), 0.254829592f);
-  const float e = 1.f - p * __expf(-z * z);
-  return 0.5f * x * (1.f + copysignf(e, x));
 }
 
 template <int MODE, bool TMA_STORE>

@@ -82,7 +82,7 @@ seg_gemm_tma_kernel(__grid_constant__ const CUtensorMap tm_a,
     TgAcc acc;
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
       const int m0 = item / tn * TG_BM, n0 = item % tn * TG_BN;
-      tg_mainloop<false>(ring, acc, segs * chunks, wg, lane);
+      tg_mainloop<false, true>(ring, acc, segs * chunks, wg, lane);
       tg_epilogue(acc, wg, warp & 3, lane, [&](int r, int c, float v0, float v1) {
         const int m = m0 + r, n = n0 + c;
         if (m >= M || n >= N) return;

@@ -47,14 +47,14 @@ _SIGNATURES = {
     "vk_attention_bwd_wgmma": [_P] * 8 + [_I] * 6 + [_F, _P],
     "vk_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
     "vk_conv3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "vk_ff_bwd_dh": [_P] * 7 + [_I, _I, _I, _P],
+    "vk_ff_bwd_dh": [_P] * 7 + [_I] * 4 + [_P],
     "vk_ln_bwd": [_P] * 7 + [_I, _I, _I, _F, _P],
     "vk_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vk_col_sum": [_P, _P, _I, _I, _I, _I, _P],
     "vk_sum_splits": [_P, _P, _I, _L, _I, _P],
     "vk_seg_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vk_ln_linear": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _P],
-    "vk_linear_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vk_linear_residual": [_P] * 5 + [_I] * 4 + [_P],
     "vk_gn_silu_conv3": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P],
 }

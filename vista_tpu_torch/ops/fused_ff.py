@@ -12,7 +12,10 @@ Backward (training): ``csrc/ff_bwd.cu`` on CUDA tensors, replacing the TPU
 backward kernels ``_ff_bwd_kernel`` (c <= 640) and ``_ff_bwd_wide_kernel``
 (c > 640) with one design for every width (see the source); on CPU tensors
 :func:`ff_bwd_plain`. It returns dx, dγ, dβ, dW1, db1, dW2, db2 and skips
-the parameter grads nobody asked for.
+the parameter grads nobody asked for. Its first step, :func:`ff_bwd_dh`
+(hg and dH = [da | dg] from xn and dy), runs on the TMA + ``wgmma`` GEMM
+skeleton of ``csrc/gemm_tma.cuh``, launched as :func:`ff_bwd_dh_plan`
+says; it reads W1 and W2 as stored.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ from __future__ import annotations
 import torch
 
 from vista_tpu_torch.ops import _build
-from vista_tpu_torch.ops.linear import (column_sum, gelu_erf, linear_residual, ln_backward,
-                                        ln_linear, seg_gemm, weight_grad)
+from vista_tpu_torch.ops.linear import (ALIGN_SLACK, BOX_BYTES, GEMM_TILE, TOKEN_BOX, GemmPlan,
+                                        column_sum, gelu_erf, linear_residual, ln_backward,
+                                        ln_linear, seg_gemm, sm_count, weight_grad)
 from vista_tpu_torch.ops.norms import MAX_C, layer_norm_kernel, layer_norm_plain, ln_bwd_plain
 
 
@@ -56,6 +60,61 @@ def ff_bwd_plain(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5):
             (dyf.t() @ hg).to(w2.dtype), dyf.sum(0))
 
 
+FB_TILE = (GEMM_TILE[0], 64)  # ff_bwd_dh's tile: 128 rows x 64 inner columns
+FB_RING = 5  # its ring stages: A (16 KB) and W1's value + gate rows (16 KB)
+
+
+def ff_bwd_dh_plan(m: int, c: int, n: int, sms: int = 132) -> GemmPlan:
+    """``ff_bwd_dh``'s launch for m rows of width c and n = 4c inner
+    columns: 128 x 64 tiles of hg (with the matching da and dg columns of
+    dH), each summed over ceil(c / 64) stages of [a | g] and as many of dhg;
+    a 5-stage ring of 32 KB and three 8 KB output boxes per consumer
+    warpgroup. Raises on a shape the kernel does not take."""
+    if m <= 0 or c <= 0 or c % 8 or n <= 0 or n % FB_TILE[1]:
+        raise ValueError(f"ff_bwd_dh needs c % 8 == 0 and inner % 64 == 0: {m}, {c}, {n}")
+    col_tiles = n // FB_TILE[1]
+    items = -(-m // FB_TILE[0]) * col_tiles
+    stage_bytes = 2 * BOX_BYTES + 2 * FB_TILE[1] * TOKEN_BOX * 2
+    staging = 2 * 3 * BOX_BYTES
+    smem = ALIGN_SLACK + FB_RING * stage_bytes + staging + 16 * FB_RING
+    return GemmPlan(FB_TILE, col_tiles, items, min(items, sms), 2 * -(-c // TOKEN_BOX), FB_RING,
+                    stage_bytes, staging, smem)
+
+
+def ff_bwd_dh_plain(xn, dy, w1, b1, w2):
+    """hg = a * gelu(g) and dH = [dhg * gelu(g) | dhg * a * gelu'(g)], with
+    [a | g] = xn W1^T + b1 and dhg = dy W2, fp32 formulas, in xn's dtype."""
+    n = w2.shape[1]
+    h = xn.float() @ w1.float().t() + b1.float()
+    a, g = h[:, :n], h[:, n:]
+    ge = gelu_erf(g)
+    dhg = dy.float() @ w2.float()
+    dh = torch.cat([dhg * ge, dhg * a * gelu_erf_grad(g)], dim=1)
+    return (a * ge).to(xn.dtype), dh.to(xn.dtype)
+
+
+def ff_bwd_dh(xn, dy, w1, b1, w2, site: str = "ff"):
+    """(hg, dH) of :func:`ff_bwd_dh_plain` for xn, dy (M, c) bf16, w1 (8c,
+    c), w2 (c, 4c) bf16 as stored and b1 (8c) fp32 (``vk_ff_bwd_dh``); on
+    CPU tensors the plain version."""
+    if _build.on_cpu(xn, dy):
+        return ff_bwd_dh_plain(xn, dy, w1, b1, w2)
+    m, c = xn.shape
+    n = w2.shape[1]
+    plan = ff_bwd_dh_plan(m, c, n, sm_count(xn.device.index or 0))
+    _build.check(xn, "xn", torch.bfloat16)
+    _build.check(dy, "dy", torch.bfloat16, (m, c))
+    _build.check(w1, "w1", torch.bfloat16, (2 * n, c))
+    _build.check(w2, "w2", torch.bfloat16, (c, n))
+    _build.check(b1, "b1", torch.float32, (2 * n,))
+    hg = torch.empty(m, n, dtype=xn.dtype, device=xn.device)
+    dh = torch.empty(m, 2 * n, dtype=xn.dtype, device=xn.device)
+    _build.launch("vk_ff_bwd_dh", xn.data_ptr(), dy.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                  b1.data_ptr(), hg.data_ptr(), dh.data_ptr(), m, c, n, plan.grid)
+    _build.count("ff_bwd_dh", site)
+    return hg, dh
+
+
 def ff_bwd(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5, needs=(True,) * 7,
            site: str = "ff"):
     """Gradients of the feed-forward w.r.t. (x, ln_w, ln_b, w1, b1, w2, b2);
@@ -68,22 +127,12 @@ def ff_bwd(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5, needs=(True,) * 7,
     c = x.shape[-1]
     m = x.numel() // c
     n = w2.shape[1]
-    if c % 32 or c > MAX_C or n % 64:
-        raise ValueError(f"ff_bwd needs c % 32 == 0, c <= {MAX_C}, inner % 64 == 0: {c}, {n}")
+    if c > MAX_C:
+        raise ValueError(f"ff_bwd needs c <= {MAX_C}: {c}")
     _build.check(x, "x", torch.bfloat16)
     _build.check(dy, "dy", torch.bfloat16, x.shape)
-    _build.check(w1, "w1", torch.bfloat16, (2 * n, c))
-    _build.check(w2, "w2", torch.bfloat16, (c, n))
-    bias1 = b1.float().contiguous()
-    _build.check(bias1, "b1", torch.float32, (2 * n,))
-    dev = x.device
     xn = layer_norm_kernel(x, ln_w, ln_b, eps, site=f"{site}-bwd")
-    hg = torch.empty(m, n, dtype=x.dtype, device=dev)
-    dh = torch.empty(m, 2 * n, dtype=x.dtype, device=dev)
-    w2t = w2.t().contiguous()
-    _build.launch("vk_ff_bwd_dh", xn.data_ptr(), dy.data_ptr(), w1.data_ptr(),
-                  w2t.data_ptr(), bias1.data_ptr(), hg.data_ptr(), dh.data_ptr(), m, c, n)
-    del w2t
+    hg, dh = ff_bwd_dh(xn.view(m, c), dy.view(m, c), w1, b1.float().contiguous(), w2, site)
     dxn = seg_gemm(dh.view(1, m, 2 * n), w1, torch.float32)
     want_ln = needs[1] or needs[2]
     dx, dln_w, dln_b = ln_backward(x, dxn, ln_w, dy, eps, want_ln)

@@ -11,7 +11,11 @@ LayerNorm statistics, and one of two epilogues:
   ``(LN(x) W_a^T + b_a) * gelu(LN(x) W_g^T + b_g)`` (exact erf GELU).
 
 K3 ``linear_residual`` (``csrc/linear_residual.cu``): ``residual + a @ W^T +
-b``, with the residual added to the fp32 accumulator.
+b``, with the bias and residual added to the fp32 accumulator; a persistent
+TMA + ``wgmma`` kernel on the GEMM skeleton of ``csrc/gemm_tma.cuh`` (both
+operands K-major as stored, 128 x 320 tiles, residual in and output out
+through shared memory with TMA), launched as :func:`linear_residual_plan`
+says.
 
 Weights are in ``torch.nn.Linear`` layout ``(out, in)``. Activations keep
 the JAX package's row layout ``(tokens..., c)``. On CUDA tensors each
@@ -36,14 +40,14 @@ explicit fp32 formulas:
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from vista_tpu_torch.ops import _build
 from vista_tpu_torch.ops.norms import MAX_C, layer_norm_kernel, layer_norm_plain, ln_bwd_plain
 
-_TILE_K = 32  # the kernels' K step
+_TILE_K = 32  # K2 and qkv_bwd take c % 32 == 0
 _K2_MAX_K = 1984  # K2 stages gamma and beta in shared memory
 
 
@@ -57,8 +61,8 @@ def gelu_erf(g: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------- split-K reductions
 
-GEMM_TILE = (128, 320)  # output tile of vk_wgrad and vk_seg_gemm (csrc/gemm_tma.cuh)
-TOKEN_BOX = 64  # tokens per TMA box, one stage of vk_wgrad
+GEMM_TILE = (128, 320)  # output tile of vk_wgrad, vk_seg_gemm and K3 (csrc/gemm_tma.cuh)
+TOKEN_BOX = 64  # depth of one ring stage: tokens in vk_wgrad, K in K3 and ff_bwd_dh
 _STAGE_US = 1.0  # one 64-token stage of one tile: the plan's unit of cost
 _HBM_BYTES_PER_US = 3.35e6  # the H100's memory rate, for the partials' cost
 
@@ -96,8 +100,58 @@ def wgrad_plan(m: int, n1: int, n2: int, segs: int = 1, sms: int = 132):
     return GEMM_TILE[1], best[1], best[2]
 
 
+# The skeleton's shared memory (csrc/gemm_tma.cuh): a stage of A (two 8 KB
+# boxes) and B (five), 1024 bytes of slack for the 1024-byte alignment of
+# the swizzled tiles, 16 bytes of barriers per ring stage.
+BOX_BYTES = 64 * 64 * 2
+STAGE_BYTES = 7 * BOX_BYTES
+ALIGN_SLACK = 1024
+K3_RING = 3  # ring stages of K3
+K3_STG_BOXES = 3  # K3's residual/output boxes per consumer warpgroup
+
+
+class GemmPlan(NamedTuple):
+    """How a kernel on the GEMM skeleton is launched for one shape: ``grid``
+    persistent blocks, block ``b`` taking work items ``b, b + grid, ...``;
+    item ``i`` is the output tile of rows ``i // col_tiles * tile[0]`` and
+    columns ``i % col_tiles * tile[1]`` (its rows and columns past the
+    output are dropped), summed over ``stages`` 64-deep stages of a ring of
+    ``ring`` stages of ``stage_bytes``; ``smem`` is the dynamic shared
+    memory a block asks for."""
+    tile: tuple
+    col_tiles: int
+    items: int
+    grid: int
+    stages: int
+    ring: int
+    stage_bytes: int
+    staging_bytes: int
+    smem: int
+
+    def tiles(self, block: int):
+        """The (first row, first column) of each tile that ``block`` takes, in order."""
+        return [(i // self.col_tiles * self.tile[0], i % self.col_tiles * self.tile[1])
+                for i in range(block, self.items, self.grid)]
+
+
+def linear_residual_plan(m: int, k: int, n: int, sms: int = 132) -> GemmPlan:
+    """K3's launch for a (m, k) x (n, k)^T product: 128 x 320 tiles (the
+    column tile fastest), ceil(k / 64) stages an item, a 3-stage ring and
+    three 8 KB residual/output boxes per consumer warpgroup. Raises on a
+    shape the kernel does not take (k and n multiples of 8: TMA's 16-byte
+    row strides)."""
+    if m <= 0 or k <= 0 or n <= 0 or k % 8 or n % 8:
+        raise ValueError(f"K3 needs m, k, n > 0 and k % 8 == 0, n % 8 == 0: {m}, {k}, {n}")
+    col_tiles = -(-n // GEMM_TILE[1])
+    items = -(-m // GEMM_TILE[0]) * col_tiles
+    staging = 2 * K3_STG_BOXES * BOX_BYTES
+    smem = ALIGN_SLACK + K3_RING * STAGE_BYTES + staging + 16 * K3_RING + 8 * 2 * K3_STG_BOXES
+    return GemmPlan(GEMM_TILE, col_tiles, items, min(items, sms), -(-k // TOKEN_BOX), K3_RING,
+                    STAGE_BYTES, staging, smem)
+
+
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -133,7 +187,7 @@ def weight_grad(a: torch.Tensor, b: torch.Tensor, dtype=torch.float32):
         raise ValueError(f"weight_grad needs N1 % 8 == 0 and N2 % 8 == 0: {n1}, {n2}")
     _build.check(a3, "a", torch.bfloat16)
     _build.check(b, "b", torch.bfloat16, (m, n2))
-    _, splits, per = wgrad_plan(m, n1, n2, segs, _sm_count(a.device.index or 0))
+    _, splits, per = wgrad_plan(m, n1, n2, segs, sm_count(a.device.index or 0))
     part = torch.empty(splits, segs * n1, n2, dtype=torch.float32, device=a.device)
     _build.launch("vk_wgrad", a3.data_ptr(), b.data_ptr(), part.data_ptr(), m, n1, n2, segs,
                   splits, per)
@@ -343,17 +397,16 @@ def _linear_residual(a, w, bias, residual, site):
     if _build.on_cpu(a, w, residual):
         return linear_residual_plain(a, w, bias, residual)
     k = a.shape[-1]
-    m = a.numel() // k
+    m = a.numel() // k if k else 0
     n = w.shape[0]
-    if k % _TILE_K or n % 8:
-        raise ValueError(f"K3 needs k % {_TILE_K} == 0 and n % 8 == 0: {k}, {n}")
+    plan = linear_residual_plan(m, k, n, sm_count(a.device.index or 0))
     _build.check(a, "a", torch.bfloat16)
     _build.check(w, "w", torch.bfloat16, (n, k))
     _build.check(bias, "bias", torch.float32, (n,))
     _build.check(residual, "residual", torch.bfloat16, (*a.shape[:-1], n))
     out = torch.empty_like(residual)
     _build.launch("vk_linear_residual", a.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                  residual.data_ptr(), out.data_ptr(), m, k, n)
+                  residual.data_ptr(), out.data_ptr(), m, k, n, plan.grid)
     _build.count("linear_residual", site)
     return out
 
