@@ -12,7 +12,9 @@ Phases, each timed on its own line:
 3. kernels: each hand-written kernel against its plain PyTorch version (fp32
    on the same bf16 inputs) at the shapes of the main paths, every output,
    with its time, the plain version's, one PyTorch library call's where one
-   computes the same function, and the least time the card could take;
+   computes the same function, and the least time the card could take; K1
+   and attention_bwd on both their routes and at their route crossovers
+   (K1's threshold in ``attention_plan`` is held to its crossover);
 4. slice: full-width VideoUNet + temporal VAE decoder in bf16 with seeded
    random weights, answering sampling requests through ``VistaEngine.sample``
    and ``decode_first_stage`` (triangle CFG 2.5, frame 0 pinned, 14/3
@@ -59,6 +61,9 @@ OUT = Path("chiprun_out")
 CARD = ""
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes per second
+# exp2 per second on the special-function units of an H100 SXM
+# (FlashAttention-3 paper, section 3: 3.9 TFLOP/s of special functions)
+PEAK_EXP2 = 3.9e12
 
 KERNELS = {
     "attention": dict(
@@ -118,8 +123,9 @@ SAMPLE_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3")
 TRAIN_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3",
                  "layer_norm", "attention_bwd", "ff_bwd", "ff_bwd_dh", "conv3")
 PHASE1_KERNELS = TRAIN_KERNELS + ("qkv_bwd", "linear_residual_bwd")
-# both routes of attention_bwd run on each training path: wgmma at the
-# spatial sites, mma.sync at the temporal ones
+# both routes of K1 run on every path and both of attention_bwd on each
+# training path: wgmma at the spatial sites, mma.sync at the temporal ones
+ATTENTION_ROUTES = ("attention:wgmma", "attention:mma")
 ATTENTION_BWD_ROUTES = ("attention_bwd:wgmma", "attention_bwd:mma")
 # the demangled names of each group's device functions, for the profiles
 # (the first group whose prefix matches takes a kernel); vk_wgrad, seg_gemm,
@@ -128,7 +134,7 @@ ATTENTION_BWD_ROUTES = ("attention_bwd:wgmma", "attention_bwd:mma")
 # function of vista_tpu_torch/csrc/ belongs to one group
 # (tests/test_torch_gemm_plan.py).
 SYMBOLS = {
-    "attention": ("vk::attention_kernel<",),
+    "attention": ("vk::attention_kernel<", "vk::attention_wgmma_kernel<"),
     "ln_linear": ("vk::ln_linear_kernel", "vk::ln_stats_kernel"),
     "linear_residual": ("vk::linear_residual_tma_kernel",),
     "gn_silu_conv3": ("vk::gn_silu_conv3_kernel<true>",),
@@ -230,9 +236,29 @@ def time_ms(fn, reps=5):
     return start.elapsed_time(stop) / reps
 
 
-def bound(flops, nbytes):
-    """The least time the card could take: bf16 tensor-core peak against HBM."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def device_ms(fn, reps=20):
+    """Device time per launch of a kernel shorter than its host-side launch:
+    the stream first sleeps (about 10 ms) while the host queues every
+    launch, so the events time the launches back to back."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound(flops, nbytes, exp2=0):
+    """The least time the card could take: the bf16 tensor-core products and
+    the ``exp2`` on the special-function units (each at its peak; the two
+    units run at once, so the slower one bounds) against the bytes over
+    HBM."""
+    t_ops = max(flops / PEAK_FLOPS, exp2 / PEAK_EXP2)
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -251,11 +277,12 @@ def full_fp32():
 
 
 def compare(name, shape, kernel_fn, plain_fn, plain_inputs_fn, rows, flops, nbytes,
-            library_fn=None, reps=5):
+            library_fn=None, reps=5, exp2=0):
     """Run the kernel and its plain version in fp32 (no TF32) on the same bf16
     inputs, compare every output (each normalised by its own largest
     magnitude), and time the kernel, the plain version on the bf16 inputs
-    and the library call."""
+    and the library call. ``exp2``: the exp2 a softmax kernel must take,
+    part of its bound (and shown beside it)."""
     got = kernel_fn()
     torch.cuda.synchronize()
     with full_fp32():
@@ -269,15 +296,16 @@ def compare(name, shape, kernel_fn, plain_fn, plain_inputs_fn, rows, flops, nbyt
     ms = time_ms(kernel_fn, reps)
     plain_ms = time_ms(plain_fn, max(1, reps // 2))
     library_ms = library_fn() if library_fn is not None else None
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by = bound(flops, nbytes, exp2)
     rel = max(rels)
     ok = all(math.isfinite(r) and r <= TOL for r in rels)
     rows.append(dict(kernel=name, shape=shape, max_abs_err=max(errs), rel_err=rel,
                      rel_err_per_output=rels, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                      bound_ms=bound_ms, bound_by=bound_by, ok=ok))
     lib = "none" if library_ms is None else f"{library_ms:8.3f} ms"
+    by = f"{bound_by}; exp2 {exp2 / PEAK_EXP2 * 1e3:.3f}" if exp2 else bound_by
     log(f"  {name:16s} {shape:38s} rel {rel:.2e}  kernel {ms:9.3f} ms  plain "
-        f"{plain_ms:9.3f} ms  library {lib}  bound {bound_ms:.3f} ms ({bound_by})  "
+        f"{plain_ms:9.3f} ms  library {lib}  bound {bound_ms:.3f} ms ({by})  "
         f"{'ok' if ok else 'FAIL'}")
     torch.cuda.empty_cache()
     return ok
@@ -291,7 +319,7 @@ def sdpa_layout(t, heads):
 def kernel_checks():
     from vista_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plain,
                                                attention_bwd_plan, attention_forward,
-                                               attention_packed, attention_plain)
+                                               attention_plain)
     from vista_tpu_torch.ops.fused_ff import ff_bwd, ff_bwd_plain
     from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_plain,
                                             ln_linear, ln_linear_plain)
@@ -310,9 +338,9 @@ def kernel_checks():
     rows, ok = [], True
     sdpa = F.scaled_dot_product_attention
 
-    # K1: (batch rows, tokens, heads) at the main paths' shapes; the ds1
-    # and 2880-token cases use a few of the 50 frames so that the plain
-    # fp32 logits fit.
+    # K1: (batch rows, tokens, heads) at the main paths' shapes, both
+    # routes, the plan's first; the ds1 and 2880-token cases use a few of
+    # the 50 frames so that the plain fp32 logits fit.
     for b, s, h, tag in [(2, 9216, 5, "ds1 576x1024"), (8, 2304, 10, "ds2 576x1024"),
                          (50, 576, 20, "ds4 576x1024"), (50, 144, 20, "mid 576x1024"),
                          (10, 2880, 5, "ds1 320x576"), (50, 720, 10, "ds2 320x576"),
@@ -320,12 +348,13 @@ def kernel_checks():
                          (18432, 25, 5, "temporal ds1 576x1024")]:
         q, k, v = (rnd(b, s, h * 64) for _ in range(3))
         q4, k4, v4 = (sdpa_layout(t, h) for t in (q, k, v))
-        ok &= compare("attention", f"{tag} ({b},{s},{h}x64)",
-                      lambda: attention_packed(q, k, v, h),
-                      lambda: attention_plain(q, k, v, h),
-                      lambda: attention_plain(*f32(q, k, v), h), rows,
-                      4 * b * h * s * s * 64, 2 * 4 * b * s * h * 64,
-                      lambda: time_ms(lambda: sdpa(q4, k4, v4)))
+        for route in attention_routes(b, s, h):
+            ok &= compare("attention", f"{tag} ({b},{s},{h}x64) {route}",
+                          lambda: attention_forward(q, k, v, h, route=route),
+                          lambda: attention_plain(q, k, v, h),
+                          lambda: attention_plain(*f32(q, k, v), h), rows,
+                          4 * b * h * s * s * 64, 2 * 4 * b * s * h * 64,
+                          lambda: time_ms(lambda: sdpa(q4, k4, v4)), exp2=b * h * s * s)
         del q, k, v, q4, k4, v4
     # K2 and K3 at c = 320 (ds1 rows) and 1280 (ds4 rows), 576x1024.
     for m, c in [(50 * 9216, 320), (50 * 576, 1280)]:
@@ -447,12 +476,9 @@ def kernel_checks():
                          (720, 25, 10, "temporal ds2")]:
         q, k, v, do = (rnd(b, s, h * 64) for _ in range(4))
         o, lse = attention_forward(q, k, v, h, want_lse=True)
-        ok &= compare("attention", f"fwd+lse {tag} 320x576 ({b},{s},{h}x64)",
-                      lambda: attention_forward(q, k, v, h, want_lse=True),
-                      lambda: attention_plain(q, k, v, h, want_lse=True),
-                      lambda: attention_plain(*f32(q, k, v), h, want_lse=True), rows,
-                      4 * b * h * s * s * 64, 2 * 4 * b * s * h * 64 + 4 * b * h * s)
         q4, k4, v4, do4 = (sdpa_layout(t, h) for t in (q, k, v, do))
+        ok &= fwd_lse_checks(f"{tag} 320x576 ({b},{s},{h}x64)", q, k, v, h, rows,
+                             lambda: time_ms(lambda: sdpa(q4, k4, v4)))
         q4.requires_grad_(), k4.requires_grad_(), v4.requires_grad_()
 
         def sdpa_fwd_bwd():
@@ -498,36 +524,99 @@ def kernel_checks():
         del gy, g5
     ok &= phase1_kernel_checks(rnd, f32, rows)
     ok &= primitive_checks(rnd, rows)
-    crossover = route_crossover(rnd)
+    fwd_crossover, crossover, agrees = route_crossovers(rnd)
     OUT.mkdir(exist_ok=True)
-    (OUT / "kernel_checks.json").write_text(json.dumps(dict(card=CARD, rows=rows,
-                                                            crossover=crossover), indent=1))
+    (OUT / "kernel_checks.json").write_text(json.dumps(dict(
+        card=CARD, rows=rows, crossover=crossover, fwd_crossover=fwd_crossover), indent=1))
     if not ok:
         raise SystemExit("a kernel disagrees with its plain version")
+    if not agrees:
+        raise SystemExit("a route threshold disagrees with the measured crossover")
     return rows
 
 
-def route_crossover(rnd):
-    """attention_bwd's two routes timed at the sites next to the threshold
-    (``SMALL_KEYS`` keys): the measurement behind ``attention_bwd_plan``."""
-    from vista_tpu_torch.ops.attention import (attention_bwd_launch, attention_bwd_plan,
-                                               attention_forward)
+def attention_routes(b, s, h):
+    """K1's two routes, the one the plan takes first."""
+    from vista_tpu_torch.ops.attention import attention_plan
 
-    out = []
-    for b, s, h, tag in [(25, 45, 20, "mid 320x576"), (25, 144, 20, "mid 576x1024"),
-                         (25, 180, 20, "ds4 320x576"), (2880, 25, 5, "temporal ds1 320x576")]:
+    chosen = attention_plan(b, s, s, h, s).route
+    return (chosen, "mma" if chosen == "wgmma" else "wgmma")
+
+
+def fwd_lse_checks(shape, q, k, v, h, rows, library_fn):
+    """K1 with its LSE output (the training forward) on both routes, every
+    output against the plain version; SDPA (no LSE) as the yardstick."""
+    from vista_tpu_torch.ops.attention import attention_forward, attention_plain
+
+    b, s = q.shape[:2]
+    ok = True
+    for route in attention_routes(b, s, h):
+        ok &= compare("attention", f"fwd+lse {shape} {route}",
+                      lambda: attention_forward(q, k, v, h, want_lse=True, route=route),
+                      lambda: attention_plain(q, k, v, h, want_lse=True),
+                      lambda: attention_plain(q.float(), k.float(), v.float(), h,
+                                              want_lse=True), rows,
+                      4 * b * h * s * s * 64, 2 * 4 * b * s * h * 64 + 4 * b * h * s,
+                      library_fn, exp2=b * h * s * s)
+    return ok
+
+
+# the plan's route may be slower than the other by this factor at a site: a
+# near-tie (144 keys, where K1's two routes read within 3% of each other on
+# an H100) must not fail the run
+CROSSOVER_SLACK = 1.2
+
+
+def route_crossover(kernel, sites, plan, launcher):
+    """``kernel``'s two routes timed on the device alone (``device_ms``) at
+    the sites next to its threshold: the measurement behind ``plan``.
+    ``launcher(b, s, h)`` makes the inputs of a site and returns the launch
+    of one route. Returns the rows and whether the plan's route is the
+    faster one at every site, within ``CROSSOVER_SLACK``."""
+    out, agrees = [], True
+    for b, s, h, tag in sites:
+        run = launcher(b, s, h)
+        ms = {route: device_ms(lambda: run(route)) for route in ("mma", "wgmma")}
+        chosen = plan(b, s, s, h, s).route
+        other = "mma" if chosen == "wgmma" else "wgmma"
+        fine = ms[chosen] <= CROSSOVER_SLACK * ms[other]
+        agrees &= fine
+        log(f"  {kernel} route crossover {tag} ({b},{s},{h}x64): mma {ms['mma']:.3f} ms, "
+            f"wgmma {ms['wgmma']:.3f} ms; the plan takes {chosen}"
+            + ("" if fine else f", more than {CROSSOVER_SLACK}x the other: DISAGREES"))
+        out.append(dict(shape=f"{tag} ({b},{s},{h}x64)", chosen=chosen, agrees=fine, **ms))
+        del run
+    torch.cuda.empty_cache()
+    return out, agrees
+
+
+def route_crossovers(rnd):
+    """Both attention kernels' crossovers: K1's at the sampling batch of 50
+    frames (the temporal attention's rows of ds4 576x1024 for t = 25),
+    attention_bwd's at the phase-2 batch of 25 (the temporal rows of ds1
+    320x576)."""
+    from vista_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plan,
+                                               attention_forward, attention_plan)
+
+    def fwd(b, s, h):
+        q, k, v = (rnd(b, s, h * 64) for _ in range(3))
+        return lambda route: attention_forward(q, k, v, h, route=route)
+
+    def bwd(b, s, h):
         q, k, v, do = (rnd(b, s, h * 64) for _ in range(4))
         o, lse = attention_forward(q, k, v, h, want_lse=True)
-        ms = {route: time_ms(lambda: attention_bwd_launch(
-                  q, k, v, o, lse, do, attention_bwd_plan(b, s, s, h, s, route=route)))
-              for route in ("mma", "wgmma")}
-        chosen = attention_bwd_plan(b, s, s, h, s).route
-        log(f"  attention_bwd route crossover {tag} ({b},{s},{h}x64): mma {ms['mma']:.3f} ms, "
-            f"wgmma {ms['wgmma']:.3f} ms; the plan takes {chosen}")
-        out.append(dict(shape=f"{tag} ({b},{s},{h}x64)", chosen=chosen, **ms))
-        del q, k, v, do, o, lse
-    torch.cuda.empty_cache()
-    return out
+        return lambda route: attention_bwd(q, k, v, o, lse, do, h, route=route)
+
+    fwd_rows, fwd_agrees = route_crossover("attention", [
+        (50, 45, 20, "mid 320x576"), (50, 144, 20, "mid 576x1024"),
+        (50, 180, 20, "ds4 320x576"), (50, 576, 20, "ds4 576x1024"),
+        (50, 720, 10, "ds2 320x576"), (1152, 25, 20, "temporal ds4 576x1024")],
+        attention_plan, fwd)
+    bwd_rows, bwd_agrees = route_crossover("attention_bwd", [
+        (25, 45, 20, "mid 320x576"), (25, 144, 20, "mid 576x1024"),
+        (25, 180, 20, "ds4 320x576"), (2880, 25, 5, "temporal ds1 320x576")],
+        attention_bwd_plan, bwd)
+    return fwd_rows, bwd_rows, fwd_agrees and bwd_agrees
 
 
 def composite_bwd_ms(fwd, inputs):
@@ -610,6 +699,11 @@ def phase1_kernel_checks(rnd, f32, rows):
         q, k, v, do = (rnd(b, s, h * 64) for _ in range(4))
         o, lse = attention_forward(q, k, v, h, want_lse=True)
         q4, k4, v4 = (sdpa_layout(t, h).detach().requires_grad_() for t in (q, k, v))
+        if b == 2:
+            with torch.no_grad():
+                ok &= fwd_lse_checks(tag, q, k, v, h, rows,
+                                     lambda: time_ms(lambda: F.scaled_dot_product_attention(
+                                         q4, k4, v4)))
         plan = attention_bwd_plan(b, s, s, h, s)
         ok &= compare("attention_bwd", f"{tag} {plan.route}",
                       lambda: attention_bwd(q, k, v, o, lse, do, h),
@@ -988,7 +1082,7 @@ def slice_run(seed, profile=False):
     OUT.mkdir(exist_ok=True)
     (OUT / "slice.json").write_text(json.dumps(dict(card=CARD, requests=results,
                                                     launches=launches), indent=1))
-    missing = missing_launches(SAMPLE_KERNELS, [
+    missing = missing_launches(SAMPLE_KERNELS + ATTENTION_ROUTES, [
         "attention/spatial-long", "attention/spatial-short", "attention/temporal",
         "ln_linear/qkv", "ln_linear/ff", "linear_residual/ff",
         "gn_silu_conv3/emb", "gn_silu_conv3/res"])
@@ -1129,7 +1223,7 @@ def train_run(seed):
     log(f"  train: {s_step:.3f} s/step (steps 2-{TRAIN_STEPS}; step 1 {steps[0]['seconds']:.3f} "
         f"s), peak {peak:.2f} GiB; card {CARD}")
     log(f"  launches over the {TRAIN_STEPS} steps: {json.dumps(sites, sort_keys=True)}")
-    missing = missing_launches(TRAIN_KERNELS + ATTENTION_BWD_ROUTES, [
+    missing = missing_launches(TRAIN_KERNELS + ATTENTION_ROUTES + ATTENTION_BWD_ROUTES, [
         "layer_norm/spatial-long", "layer_norm/spatial-short", "layer_norm/temporal",
         "attention/spatial-long", "attention/spatial-short", "attention/temporal",
         "attention_bwd/spatial-long", "attention_bwd/spatial-short", "attention_bwd/temporal",
@@ -1412,7 +1506,7 @@ def phase1_run(seed):
         faults.append(f"the EMA of {len(ema_still)} trained tensors did not move")
     if moved_frozen:
         faults.append(f"frozen tensors changed: {moved_frozen[:3]}")
-    missing = missing_launches(PHASE1_KERNELS + ATTENTION_BWD_ROUTES, [
+    missing = missing_launches(PHASE1_KERNELS + ATTENTION_ROUTES + ATTENTION_BWD_ROUTES, [
         "qkv_bwd/spatial-long", "qkv_bwd/spatial-short", "qkv_bwd/temporal",
         "linear_residual_bwd/attn-out", "linear_residual_bwd/temporal-out",
         "ln_linear/qkv", "ln_linear/temporal-qkv", "linear_residual/attn-out",
@@ -1463,9 +1557,13 @@ def main():
                    "phase1": phase1.get(name, 0)}
         path = ("sample" if name in SAMPLE_KERNELS else
                 "train" if name in TRAIN_KERNELS else "phase1")
+        routes = {key.split(":")[1]: {"sample": sample.get(key, 0), "train": train.get(key, 0),
+                                      "phase1": phase1.get(key, 0)}
+                  for key in sorted({*sample, *train, *phase1}) if key.startswith(name + ":")}
         kernels.append(dict(
             name=name, **meta, launches=by_path[path],
-            launches_by_path=by_path, max_abs_err=max(r["max_abs_err"] for r in mine),
+            launches_by_path=by_path, launches_by_route=routes or None,
+            max_abs_err=max(r["max_abs_err"] for r in mine),
             rel_err=max(r["rel_err"] for r in mine), shape=timed["shape"], ms=timed["ms"],
             plain_ms=timed["plain_ms"], bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
             library_ms=timed["library_ms"]))

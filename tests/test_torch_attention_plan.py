@@ -1,12 +1,15 @@
-"""What the CPU can check of the attention backward's routing
-(``attention_bwd_plan``): the route of every UNet site at both training
-resolutions and of ragged shapes, that the dK/dV and dQ grids cover every
-key and query row of every (batch row, head) exactly once, that tiles are
-whole 64-row boxes and shared memory fits a block, that the plan's tile,
-stage and shared-memory numbers are the CUDA source's, and the wgmma
+"""What the CPU can check of K1's forward routing (``attention_plan``) and
+the attention backward's (``attention_bwd_plan``): the route of every UNet
+site at both resolutions and of ragged shapes, that the forward's grid
+(the one its entry is handed) covers every query row, and the backward's
+dK/dV and dQ grids every key
+and query row, of every (batch row, head) exactly once, that tiles are
+whole 64-row boxes and shared memory fits a block, that the plans' tile,
+stage and shared-memory numbers are the CUDA sources', and the wgmma
 route's pre-pass in its plain form. No card, no JAX jit: each case takes
 milliseconds."""
 
+import collections
 import re
 from pathlib import Path
 
@@ -14,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from vista_tpu_torch.ops.attention import (SMALL_KEYS, attention_bwd, attention_bwd_plain,
+from vista_tpu_torch.ops.attention import (FWD_SMALL_KEYS, FWD_STAGES, SMALL_KEYS,
+                                           attention_bwd, attention_bwd_plain,
                                            attention_bwd_plan, attention_bwd_prep,
-                                           attention_bwd_prep_plain)
+                                           attention_bwd_prep_plain, attention_forward,
+                                           attention_plain, attention_plan)
 
 ROOT = Path(__file__).resolve().parents[1]
 SMEM_LIMIT = 232448  # the shared memory one block may opt into on an H100 (227 KB)
@@ -102,11 +107,11 @@ def test_forced_route():
     assert attention_bwd_plan(25, 2880, 2880, 5, 2880, route="mma").route == "mma"
 
 
-def _constants():
-    """The wgmma route's ``constexpr int WB...`` of the CUDA source."""
-    src = (ROOT / "vista_tpu_torch" / "csrc" / "attention_bwd.cu").read_text()
-    env = {"HD": 64}
-    for name, expr in re.findall(r"constexpr int (WB\w*) = ([^;]+);", src):
+def _constants(source="attention_bwd.cu", prefix="WB", env=None):
+    """The wgmma route's ``constexpr int <prefix>...`` of a CUDA source."""
+    src = (ROOT / "vista_tpu_torch" / "csrc" / source).read_text()
+    env = dict(env or {"HD": 64})
+    for name, expr in re.findall(rf"constexpr int ({prefix}\w*) = ([^;]+);", src):
         env[name] = eval(expr, {}, env)  # products and sums of the names above
     return env
 
@@ -118,6 +123,124 @@ def test_plan_matches_the_cuda_source():
     assert plan.threads == c["WB_THREADS"]
     assert plan.smem == {"dkv": c["WB_DKV_SMEM"], "dq": c["WB_DQ_SMEM"]}
     assert c["WB"] % 64 == 0 and c["WB_THREADS"] == 384
+
+
+@pytest.mark.parametrize("b,s_q,s_k,heads,kv_len", [s[:5] for s in SITES] + RAGGED,
+                         ids=[s[-1] for s in SITES] + [f"ragged{r}" for r in RAGGED])
+def test_fwd_plan(b, s_q, s_k, heads, kv_len):
+    plan = attention_plan(b, s_q, s_k, heads, kv_len)
+    # the route: more than FWD_SMALL_KEYS keys take the wgmma kernel
+    assert plan.route == ("mma" if s_k <= FWD_SMALL_KEYS else "wgmma")
+    assert plan.tile % 64 == 0 and plan.threads % 128 == 0
+    assert 0 <= plan.smem <= SMEM_LIMIT
+    assert (plan.smem == 0) == (plan.route == "mma")
+    # every query row of every (batch row, head) once
+    assert (_covered(plan, plan.grid, plan.block, plan.tile, s_q) == 1).all()
+
+
+def test_fwd_routes_of_the_unet_sites():
+    """The measured crossover on an H100 (PERF.md §6): every spatial
+    self-attention from 144 keys up takes the wgmma forward; the 45-key mid
+    site at 320x576 and the temporal t = 25 attention take the mma.sync one."""
+    routes = {s[-1]: attention_plan(*s[:5]).route for s in SITES}
+    for name, route in routes.items():
+        kind, level, res = name.split()
+        spatial_long = kind == "spatial" and (level, res) != ("mid", "320x576")
+        assert route == ("wgmma" if spatial_long else "mma"), name
+    assert sum(r == "wgmma" for r in routes.values()) == 7
+
+
+def test_fwd_plan_refuses_bad_shapes():
+    with pytest.raises(ValueError):
+        attention_plan(1, 10, 10, 1, 0)
+    with pytest.raises(ValueError):
+        attention_plan(1, 10, 10, 1, 11)
+    with pytest.raises(ValueError):
+        attention_plan(0, 10, 10, 1, 10)
+    with pytest.raises(ValueError):
+        attention_plan(1, 10, 100, 1, 100, route="flash")
+
+
+def test_fwd_forced_route():
+    assert attention_plan(2880, 25, 25, 5, 25, route="wgmma").route == "wgmma"
+    assert attention_plan(25, 2880, 2880, 5, 2880, route="mma").route == "mma"
+    assert attention_plan(25, 2880, 2880, 5, 2880).route == "wgmma"
+
+
+def test_fwd_plan_matches_the_cuda_source():
+    c = _constants("attention.cu", "AW", {"AD": 64})
+    plan = attention_plan(2, 9216, 9216, 5, 9216)
+    assert plan.tile == c["AW"] and c["AW"] == 2 * 64  # two consumer warpgroups of 64 rows
+    assert plan.threads == c["AW_THREADS"] == 384
+    assert FWD_STAGES == c["AW_STAGES"]
+    assert plan.smem == c["AW_SMEM"]
+    src = (ROOT / "vista_tpu_torch" / "csrc" / "attention.cu").read_text()
+    assert "constexpr int AQ = 64" in src and "__launch_bounds__(128)" in src
+    mma = attention_plan(25, 25, 25, 5, 25)
+    assert (mma.tile, mma.threads) == (64, 128)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+@pytest.mark.parametrize("b,s_q,s_k,heads,valid_k", [(3, 100, 130, 2, 77), (2, 576, 576, 3, None)])
+def test_forward_launches_the_plan(monkeypatch, route, b, s_q, s_k, heads, valid_k):
+    """attention_forward hands the kernel's entry the plan's grid (and, on
+    the wgmma route, its shared memory), and the entry checks them against
+    the same formulas: the grid that the coverage test walks is the one
+    launched. The CUDA side is replaced by a recorder, so no card is needed."""
+    from vista_tpu_torch.ops import _build
+
+    calls = []
+    monkeypatch.setattr(_build, "on_cpu", lambda *ts: False)
+    monkeypatch.setattr(_build, "check", lambda *a, **kw: None)
+    monkeypatch.setattr(_build, "launch", lambda name, *args: calls.append((name, args)))
+    for counter in ("LAUNCHES", "SITES"):
+        monkeypatch.setattr(_build, counter, collections.Counter())
+    q = torch.zeros(b, s_q, heads * 64, dtype=torch.bfloat16)
+    k, v = (torch.zeros(b, s_k, heads * 64, dtype=torch.bfloat16) for _ in range(2))
+    attention_forward(q, k, v, heads, valid_k, want_lse=True, route=route)
+    plan = attention_plan(b, s_q, s_k, heads, valid_k or s_k, route)
+    (name, args), = calls
+    if route == "mma":
+        assert name == "vk_attention" and args[-2:] == plan.grid
+    else:
+        assert name == "vk_attention_wgmma" and args[-2:] == (plan.grid[0], plan.smem)
+    assert args[5:10] == (b, s_q, s_k, heads, plan.kv_len)
+    assert _build.LAUNCHES == {"attention": 1, f"attention:{route}": 1}
+    src = (ROOT / "vista_tpu_torch" / "csrc" / "attention.cu").read_text()
+    assert "grid_x != B * ((Sq + vk::AQ - 1) / vk::AQ) || grid_y != H" in src
+    assert "(long)blocks != (long)B * H * ((Sq + AW - 1) / AW) || smem != AW_SMEM" in src
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma", None])
+def test_backward_forced_route(monkeypatch, route):
+    """``route=`` forces attention_bwd's kernels as it does the forward's,
+    and the launch is counted under the route taken (recorded, no card)."""
+    from vista_tpu_torch.ops import _build
+
+    calls = []
+    monkeypatch.setattr(_build, "on_cpu", lambda *ts: False)
+    monkeypatch.setattr(_build, "check", lambda *a, **kw: None)
+    monkeypatch.setattr(_build, "launch", lambda name, *args: calls.append(name))
+    for counter in ("LAUNCHES", "SITES"):
+        monkeypatch.setattr(_build, counter, collections.Counter())
+    q, k, v, o, do = (torch.zeros(2, 300, 128, dtype=torch.bfloat16) for _ in range(5))
+    lse = torch.zeros(2, 2, 300)
+    attention_bwd(q, k, v, o, lse, do, 2, route=route)
+    taken = route or "wgmma"  # 300 keys: above SMALL_KEYS
+    assert calls == ["vk_attention_bwd_prep",
+                     "vk_attention_bwd" if taken == "mma" else "vk_attention_bwd_wgmma"]
+    assert _build.LAUNCHES == {"attention_bwd": 1, f"attention_bwd:{taken}": 1}
+
+
+def test_cpu_forward_is_the_plain_one():
+    """On CPU tensors the forward runs the plain version, whatever the route."""
+    q, k, v = (torch.from_numpy(_rows(2, 130, 128, seed=i)) for i in range(3))
+    attention_plain(q, k, v, 2, 77, want_lse=True)  # warm-up: see the backward's test
+    want = attention_plain(q, k, v, 2, 77, want_lse=True)
+    for route in ("wgmma", "mma", None):
+        got = attention_forward(q, k, v, 2, 77, want_lse=True, route=route)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def _rows(*shape, seed):
@@ -147,6 +270,9 @@ def test_cpu_backward_is_the_plain_one():
     """On CPU tensors the wrapper runs the plain version, whatever the route."""
     q, k, v, do = (torch.from_numpy(_rows(2, 130, 128, seed=i)) for i in range(4))
     lse = torch.from_numpy(_rows(2, 2, 130, seed=5))
+    # the first CPU matmul of a process now and then sums in another order
+    # than the later ones (about one run in ten): warm up before comparing bits
+    attention_bwd_plain(q, k, v, q, lse, do, 2, 77)
     got = attention_bwd(q, k, v, q, lse, do, 2, 77)
     want = attention_bwd_plain(q, k, v, q, lse, do, 2, 77)
     for g, w in zip(got, want):

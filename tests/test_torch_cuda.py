@@ -137,6 +137,53 @@ def test_gn_silu_conv3(rnd, cout, epilogue):
            gn_silu_conv3_plain(*_f32(x, sc, sh, w, b), t, **ref_kw))
 
 
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+@pytest.mark.parametrize("b,s_q,s_k,heads,valid_k", [
+    (3, 100, 100, 2, None), (2, 1000, 1000, 5, None), (1, 2880, 2880, 1, None),
+    (3, 100, 130, 2, None), (3, 100, 130, 2, 77), (2, 300, 300, 20, None),
+    (2, 129, 200, 3, 1)])
+def test_attention_routes(rnd, route, b, s_q, s_k, heads, valid_k):
+    """Each of K1's routes, forced, at ragged lengths, s_q != s_k, a valid
+    key length, 1 and 20 heads: the output and the LSE."""
+    q, k, v = rnd(b, s_q, heads * 64), rnd(b, s_k, heads * 64), rnd(b, s_k, heads * 64)
+    _build.reset_counts()
+    o, lse = attention_forward(q, k, v, heads, valid_k, want_lse=True, route=route)
+    assert _build.LAUNCHES[f"attention:{route}"] == 1
+    ref_o, ref_lse = attention_plain(*_f32(q, k, v), heads, valid_k, want_lse=True)
+    _check(o, ref_o)
+    _check(lse, ref_lse)
+    _check(attention_forward(q, k, v, heads, valid_k, route=route), ref_o)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+def test_attention_is_deterministic(rnd, route):
+    """No atomics: two launches give the same bits, with and without LSE."""
+    q, k, v = (rnd(2, 1000, 5 * 64) for _ in range(3))
+    first = attention_forward(q, k, v, 5, want_lse=True, route=route)
+    second = attention_forward(q, k, v, 5, want_lse=True, route=route)
+    for t, u in zip(first, second):
+        assert torch.equal(t, u)
+    assert torch.equal(first[0], attention_forward(q, k, v, 5, route=route))
+
+
+@pytest.mark.parametrize("b,s,heads,route", [(2, 576, 5, "wgmma"), (30, 25, 5, "mma")])
+def test_attention_packed_forward_route(rnd, b, s, heads, route):
+    """attention_packed under autograd takes the wgmma forward at a spatial
+    length and the mma.sync one at t = 25, and the backward on that
+    forward's LSE holds its plain version."""
+    q, k, v, gy = (rnd(b, s, heads * 64) for _ in range(4))
+    args = [t.requires_grad_() for t in (q, k, v)]
+    _build.reset_counts()
+    out = attention_packed(*args, heads)
+    assert _build.LAUNCHES[f"attention:{route}"] == 1 and _build.LAUNCHES["attention"] == 1
+    got = torch.autograd.grad(out, args, gy)
+    o, lse = attention_plain(*_f32(q, k, v), heads, want_lse=True)
+    _check(out, o)
+    ref = attention_bwd_plain(*_f32(q, k, v), o, lse, gy.float(), heads)
+    for g, r in zip(got, ref):
+        _check(g, r)
+
+
 @pytest.mark.parametrize("shape", [(300, 320), (50, 25, 640), (7, 1280)])
 def test_layer_norm(rnd, shape):
     c = shape[-1]
@@ -160,6 +207,22 @@ def test_attention_bwd(rnd, b, s_q, s_k, heads, valid_k):
     _build.reset_counts()
     got = attention_bwd(q, k, v, o, lse, do, heads, valid_k)
     route = "mma" if s_k <= SMALL_KEYS else "wgmma"
+    assert _build.LAUNCHES[f"attention_bwd:{route}"] == 1
+    ref = attention_bwd_plain(*_f32(q, k, v, o, lse, do), heads, valid_k)
+    for g, r in zip(got, ref):
+        _check(g, r)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+@pytest.mark.parametrize("b,s_q,s_k,heads,valid_k", [(3, 100, 130, 2, 77), (40, 25, 25, 5, None)])
+def test_attention_bwd_forced_route(rnd, route, b, s_q, s_k, heads, valid_k):
+    """``route=`` forces either backward route at a spatial and a temporal
+    shape, each within the tolerance of the plain version."""
+    q, k, v = rnd(b, s_q, heads * 64), rnd(b, s_k, heads * 64), rnd(b, s_k, heads * 64)
+    do = rnd(b, s_q, heads * 64)
+    o, lse = attention_forward(q, k, v, heads, valid_k, want_lse=True)
+    _build.reset_counts()
+    got = attention_bwd(q, k, v, o, lse, do, heads, valid_k, route=route)
     assert _build.LAUNCHES[f"attention_bwd:{route}"] == 1
     ref = attention_bwd_plain(*_f32(q, k, v, o, lse, do), heads, valid_k)
     for g, r in zip(got, ref):

@@ -25,7 +25,7 @@ from vista_tpu.ops import fused_qkv as jqkv
 from vista_tpu.ops import fused_temporal_attn as jta
 from vista_tpu.ops import temporal_conv as jtc
 from vista_tpu.ops import tiny_attention as jtiny
-from vista_tpu_torch.ops.attention import attention_packed
+from vista_tpu_torch.ops.attention import attention_forward, attention_packed
 from vista_tpu_torch.ops.fused_ff import fused_geglu_ff
 from vista_tpu_torch.ops.fused_qkv import fused_ln_qkv
 from vista_tpu_torch.ops.fused_temporal_attn import fused_temporal_self_attn
@@ -60,6 +60,22 @@ def test_attention_matches_flash(s_q, s_k):
                                             jnp.asarray(v), heads))
     ref = jfa._xla_reference(*(jnp.asarray(a).reshape(1, -1, heads, d) for a in (q, k, v)))
     _close(port, np.asarray(ref).reshape(1, s_q, heads * d))
+
+
+def test_attention_lse_matches_flash():
+    """The training forward's log-sum-exp, the residual the backward kernels
+    read, against the JAX flash kernel's (interpret mode) at a ragged size:
+    fp32 on both sides, both within 1e-5 (they differ by about 5e-7)."""
+    rng = np.random.default_rng(4)
+    b, s, heads = 2, 130, 2
+    q, k, v = (_rand(rng, b, s, heads * 64) for _ in range(3))
+    out, lse = attention_forward(_t(q), _t(k), _t(v), heads, want_lse=True)
+    ref_out, ref_lse = jfa._flash_fwd_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                             heads, interpret=True, want_lse=True)
+    assert lse.shape == (b, heads, s) and ref_lse.shape == (b, heads, s, 1)
+    tol = dict(atol=1e-5, rtol=1e-5)
+    _close(out, ref_out, tol)
+    _close(lse, np.asarray(ref_lse)[..., 0], tol)
 
 
 @pytest.mark.parametrize("s,heads", [(25, 5), (45, 20), (144, 4)])

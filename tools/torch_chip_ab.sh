@@ -1,9 +1,11 @@
 #!/bin/bash
 # A/B of two trees of the PyTorch port on one card, in turns: parent,
 # change, change, parent. Each run is the tree's own `chip_smoke.py
-# --profile`, then tools/torch_ff_bwd_dh_alone.py in the same tree; after
-# the four runs, the change's card tests and a comparison of the SASS of the
-# GEMM skeleton's kernels that both trees build.
+# --profile`, then tools/torch_ff_bwd_dh_alone.py and
+# tools/torch_attention_alone.py in the same tree; after the four runs, the
+# change's card tests and a comparison of the SASS of the kernels that both
+# trees build from shared code (the GEMM skeleton's and attention_bwd's
+# wgmma kernels).
 #
 # Unpack both trees into a gitignored directory first, e.g.
 #   git archive <parent commit> | tar -x -C build/ab/parent
@@ -44,7 +46,8 @@ for side in parent change change parent; do
   log="$OUT/run${i}_${side}.txt"
   (cd "$dir" && timeout -k 10 1150 python3 chip_smoke.py --profile > "$log" 2>&1
    echo "rc=$?" >> "$log"
-   timeout -k 10 120 python3 "$HERE/tools/torch_ff_bwd_dh_alone.py" >> "$log" 2>&1)
+   timeout -k 10 120 python3 "$HERE/tools/torch_ff_bwd_dh_alone.py" >> "$log" 2>&1
+   timeout -k 10 120 python3 "$HERE/tools/torch_attention_alone.py" >> "$log" 2>&1)
   rm -rf "$OUT/run${i}_${side}_out"
   mv "$dir/$RESULTS" "$OUT/run${i}_${side}_out" 2>/dev/null
   echo "== run $i $side"
@@ -61,7 +64,7 @@ def kernels(so):
     out = {}
     for part in re.split(r"\n\s*Function : ", dump)[1:]:
         name, body = part.split("\n", 1)
-        if "wgrad_tma_kernel" in name or "seg_gemm_tma_kernel" in name:
+        if any(k in name for k in ("wgrad_tma_kernel", "seg_gemm_tma_kernel", "attn_bwd_")):
             out[name.strip()] = body
     return out
 

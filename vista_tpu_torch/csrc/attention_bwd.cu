@@ -59,8 +59,7 @@
 //     dP^T = V dO^T, dS^T = P^T (dP^T - D), dK += dS^T Q;
 //   - dQ: a block per (64 queries, batch row, head), K and V tiles
 //     streaming: S = Q K^T, P, dP = dO V^T, dS = P (dP - D), dQ += dS K.
-#include "common.cuh"
-#include "hopper.cuh"
+#include "attention_wgmma.cuh"
 
 namespace vk {
 
@@ -325,12 +324,6 @@ constexpr int WB_BAR_BYTES = 8 * (1 + 2 * WB_STAGES);
 constexpr int WB_DKV_SMEM = 1024 + 2 * WB_TILE + WB_STAGES * WB_DKV_STAGE + WB_BAR_BYTES;
 constexpr int WB_DQ_SMEM = 1024 + 2 * WB_TILE + WB_STAGES * WB_DQ_STAGE + WB_BAR_BYTES;
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Shared memory of a block (1024-aligned for the swizzle): the two tiles it
 // keeps (K, V or Q, dO) at `fixed`, then the ring, then the barriers: one
 // for the kept tiles, full and empty per stage.
@@ -356,32 +349,6 @@ __device__ __forceinline__ WbRing wb_ring(uint8_t* smem_raw, int stage_bytes) {
   }
   __syncthreads();
   return r;
-}
-
-// A (64 x 128) fp32 accumulator as the bf16 A fragments of a product over
-// its 128 columns: slice kk holds columns 16 kk .. 16 kk + 15.
-__device__ __forceinline__ void acc_to_frags(const float (&a)[64], uint32_t (&f)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    f[kk][0] = pack_bf16(a[8 * kk], a[8 * kk + 1]);
-    f[kk][1] = pack_bf16(a[8 * kk + 2], a[8 * kk + 3]);
-    f[kk][2] = pack_bf16(a[8 * kk + 4], a[8 * kk + 5]);
-    f[kk][3] = pack_bf16(a[8 * kk + 6], a[8 * kk + 7]);
-  }
-}
-
-// d (64 x 128) = a (64 x 64) b^T (128 x 64): both 128B-swizzled, K-major.
-__device__ __forceinline__ void wb_scores(float (&d)[64], uint32_t a, uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_m64n128k16_ss<0, 0>(d, desc_sw128(a) + 2 * kk, desc_sw128(b) + 2 * kk, kk);
-}
-
-// d (64 x 64) += f (64 x 128, A fragments) b (128 x 64, MN-major as stored).
-__device__ __forceinline__ void wb_accumulate(float (&d)[32], const uint32_t (&f)[8][4],
-                                              uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) wgmma_m64n64k16_rs<1>(d, f[kk], desc_sw128_mn(b + kk * 2048), 1);
 }
 
 // dK, dV of 128 keys of one (batch row, head): block = key tile fastest,
@@ -676,15 +643,6 @@ extern "C" int vk_attention_bwd(const void* q, const void* k, const void* v, con
   return (int)cudaGetLastError();
 }
 
-// 3-d map of a packed (B, rows, H*64) bf16 tensor in boxes of 64 columns
-// (one head) x 128 rows of one batch row; rows past the end arrive as zeros.
-static bool attn_bwd_map(CUtensorMap* map, const void* p, int rows, int B, int H) {
-  const uint64_t dims[3] = {(uint64_t)H * vk::HD, (uint64_t)rows, (uint64_t)B};
-  const uint64_t strides[2] = {(uint64_t)H * vk::HD * 2, (uint64_t)rows * H * vk::HD * 2};
-  const uint32_t box[3] = {(uint32_t)vk::HD, (uint32_t)vk::WB, 1u};
-  return vk::make_tmap_bf16(map, p, 3, dims, strides, box);
-}
-
 // A second stream per device for the dQ kernel, made once.
 static cudaError_t side_stream(cudaStream_t* out) {
   static cudaStream_t streams[64] = {};
@@ -711,8 +669,8 @@ extern "C" int vk_attention_bwd_wgmma(const void* q, const void* k, const void* 
        (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 16)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  if (!attn_bwd_map(&tm_q, q, Sq, B, H) || !attn_bwd_map(&tm_do, dout, Sq, B, H) ||
-      !attn_bwd_map(&tm_k, k, Sk, B, H) || !attn_bwd_map(&tm_v, v, Sk, B, H))
+  if (!attn_map(&tm_q, q, Sq, B, H, WB) || !attn_map(&tm_do, dout, Sq, B, H, WB) ||
+      !attn_map(&tm_k, k, Sk, B, H, WB) || !attn_map(&tm_v, v, Sk, B, H, WB))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float scale_log2 = scale * LOG2E;

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels, as inline
-// PTX: mbarriers and a ring of stages under them, TMA tile loads and stores, wgmma (bf16 -> fp32) with A in
-// registers or shared memory and B in shared memory through matrix
-// descriptors (K-major or MN-major), bulk copies, ldmatrix, and the host-side
+// PTX: named barriers, mbarriers and a ring of stages under them, TMA tile
+// loads and stores, wgmma (bf16 -> fp32) with A in registers or shared
+// memory and B in shared memory through matrix descriptors (K-major or
+// MN-major), bulk copies, ldmatrix, and the host-side
 // tensor-map encoder. Nothing here depends on a particular kernel.
 //
 // Shared-memory tiles are K-major (64 bf16 = 128 bytes per row) with the
@@ -35,6 +36,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // multiple of 32: one warpgroup's, say.
 __device__ __forceinline__ void bar_named(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The same barrier, arriving without waiting: with bar_named on the other
+// side, one group of warps lets another go on.
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- mbarriers

@@ -41,7 +41,8 @@ SITES: collections.Counter = collections.Counter()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
-    "vk_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "vk_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "vk_attention_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "vk_attention_bwd_prep": [_P] * 4 + [_I] * 4 + [_P],
     "vk_attention_bwd": [_P] * 8 + [_I] * 6 + [_F, _P],
     "vk_attention_bwd_wgmma": [_P] * 8 + [_I] * 6 + [_F, _P],

@@ -5,9 +5,12 @@ and ``ops/tiny_attention.py``: one entry, :func:`attention_packed`, covers
 the spatial self-attention at every length (the JAX package switches
 between its flash kernel at s >= 2048 and its tiny kernel at s <= 1024) and
 the temporal attention over t = 25 frames. On CUDA tensors it launches the
-hand-written kernel K1 (``csrc/attention.cu``); on CPU tensors it runs
-:func:`attention_plain`. The kernel takes t = 25 unpadded; ``valid_k``
-masks keys at or past it for callers that do pad.
+hand-written kernel K1 (``csrc/attention.cu``) on the route that
+:func:`attention_plan` picks: more than ``FWD_SMALL_KEYS`` keys (the
+spatial sites) take the TMA + ``wgmma`` flash forward, the temporal t = 25
+attention (and any site at or under the threshold) the ``mma.sync`` kernel.
+On CPU tensors it runs :func:`attention_plain`. The kernels take t = 25
+unpadded; ``valid_k`` masks keys at or past it for callers that do pad.
 
 Backward (training): when an input requires grad, the forward also writes
 the fp32 log-sum-exp of each query row, ``(B, heads, S_q)`` (the JAX
@@ -25,6 +28,7 @@ the temporal t = 25 attention and the 45-key mid site at 320x576 keep the
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -35,15 +39,80 @@ from vista_tpu_torch.ops import _build
 HEAD_DIM = 64  # the only head width K1 is built for (the UNet's)
 _LOG2E = 1.4426950408889634
 
-# attention_bwd routes (csrc/attention_bwd.cu): at most SMALL_KEYS keys take
+# Both kernels' routes share their shapes: at most a threshold of keys take
 # the mma.sync kernels (64-row tiles, 128 threads, static shared memory);
 # more take the wgmma kernels (blocks of 128 rows, two consumer warpgroups
-# and a producer warpgroup, a ring of WGMMA_STAGES stages of 128 rows).
+# and a producer warpgroup, a ring of stages of 128 rows). K1's threshold is
+# FWD_SMALL_KEYS and its ring FWD_STAGES deep (csrc/attention.cu);
+# attention_bwd's SMALL_KEYS and WGMMA_STAGES (csrc/attention_bwd.cu). Both
+# thresholds are measured crossovers on an H100 (chip_smoke.py
+# route_crossovers): the mma.sync kernels win at t = 25
+# and at the 45-key mid site of 320x576, the wgmma ones from 144 keys up.
+FWD_SMALL_KEYS = 64
+FWD_STAGES = 4
 SMALL_KEYS = 64
 MMA_TILE, MMA_THREADS = 64, 128
 WGMMA_TILE, WGMMA_STAGES, WGMMA_THREADS = 128, 3, 384
 _BOX = WGMMA_TILE * HEAD_DIM * 2  # one 128 x 64 bf16 tile, bytes
 _BARRIERS = 8 * (1 + 2 * WGMMA_STAGES)
+
+
+def _decode(route, heads, tile, tiles, i, y):
+    """(batch row, head, first row) of block ``i`` of a grid over ``tiles``
+    row tiles per (batch row, head): ``(b tiles, heads)`` on the mma
+    route, flat with the tile fastest, then the head, on the wgmma one."""
+    if route == "mma":
+        return i // tiles, y, i % tiles * tile
+    bh = i // tiles
+    return bh // heads, bh % heads, i % tiles * tile
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """What :func:`attention_forward` launches for one shape: ``route``
+    (``"wgmma"`` or ``"mma"``), the row tile of a block (queries per block
+    and keys per step), its threads, the grid (``(x, y)`` on the mma route,
+    flat on the wgmma one) and the dynamic shared memory in bytes (0 on the
+    mma route, whose shared memory is static)."""
+
+    route: str
+    b: int
+    s_q: int
+    s_k: int
+    heads: int
+    kv_len: int
+    tile: int
+    threads: int
+    grid: tuple
+    smem: int
+
+    def block(self, i: int, y: int = 0):
+        """(batch row, head, first query) of block ``i``, as the kernel
+        decodes it."""
+        return _decode(self.route, self.heads, self.tile, -(-self.s_q // self.tile), i, y)
+
+
+@functools.lru_cache(maxsize=256)
+def attention_plan(b: int, s_q: int, s_k: int, heads: int, kv_len: int,
+                   route: Optional[str] = None) -> FwdPlan:
+    """The route, tile, grid and shared memory that K1's forward launches at
+    one shape (the kernels' entries only check them), computed here so that
+    the CPU tests check them; cached, since a model repeats a few shapes.
+    ``route`` forces a route (for measuring the crossover); by default more
+    than ``FWD_SMALL_KEYS`` keys take the wgmma kernel."""
+    if min(b, s_q, s_k, heads) < 1 or not 1 <= kv_len <= s_k:
+        raise ValueError(f"attention_plan: bad shape {(b, s_q, s_k, heads, kv_len)}")
+    route = route or ("mma" if s_k <= FWD_SMALL_KEYS else "wgmma")
+    shape = (b, s_q, s_k, heads, kv_len)
+    if route == "mma":
+        return FwdPlan(route, *shape, MMA_TILE, MMA_THREADS, (b * -(-s_q // MMA_TILE), heads), 0)
+    if route != "wgmma":
+        raise ValueError(f"attention_plan: unknown route {route!r}")
+    t = WGMMA_TILE
+    # 1024 for the swizzle alignment, the Q tile, the ring of K and V, the
+    # barriers (Q's, full and empty per stage)
+    smem = 1024 + _BOX + FWD_STAGES * 2 * _BOX + 8 * (1 + 2 * FWD_STAGES)
+    return FwdPlan(route, *shape, t, WGMMA_THREADS, (b * heads * -(-s_q // t),), smem)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,10 +152,7 @@ class BwdPlan:
         return self._decode(i, y, -(-self.s_q // self.tile))
 
     def _decode(self, i, y, tiles):
-        if self.route == "mma":
-            return i // tiles, y, i % tiles * self.tile
-        bh = i // tiles
-        return bh // self.heads, bh % self.heads, i % tiles * self.tile
+        return _decode(self.route, self.heads, self.tile, tiles, i, y)
 
 
 def attention_bwd_plan(b: int, s_q: int, s_k: int, heads: int, kv_len: int,
@@ -181,19 +247,26 @@ def _check_qkv(q, k, v, heads):
 
 def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       heads: int, valid_k: Optional[int] = None,
-                      site: str = "spatial", want_lse: bool = False):
-    """K1 on CUDA tensors (with the LSE output when ``want_lse``), the plain
-    version on CPU tensors. Not differentiable: see :func:`attention_packed`."""
+                      site: str = "spatial", want_lse: bool = False,
+                      route: Optional[str] = None):
+    """K1 on CUDA tensors (with the LSE output when ``want_lse``), on the
+    route of :func:`attention_plan` (``route`` forces one, for measurements
+    and the card tests); the plain version on CPU tensors. Not
+    differentiable: see :func:`attention_packed`."""
     if _build.on_cpu(q, k, v):
         return attention_plain(q, k, v, heads, valid_k, want_lse)
     _check_qkv(q, k, v, heads)
     b, s_q, _ = q.shape
+    plan = attention_plan(b, s_q, k.shape[1], heads, _kv_len(k.shape[1], valid_k), route)
     out = torch.empty_like(q)
     lse = torch.empty(b, heads, s_q, dtype=torch.float32, device=q.device) if want_lse else None
-    _build.launch("vk_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), _build.ptr(lse), b, s_q, k.shape[1], heads,
-                  _kv_len(k.shape[1], valid_k), (HEAD_DIM ** -0.5) * _LOG2E)
-    _build.count("attention", site)
+    # the mma route's grid is (x, y), the wgmma route's its block count and
+    # its dynamic shared memory
+    launch = plan.grid if plan.route == "mma" else (plan.grid[0], plan.smem)
+    _build.launch("vk_attention" if plan.route == "mma" else "vk_attention_wgmma",
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(lse),
+                  b, s_q, plan.s_k, heads, plan.kv_len, (HEAD_DIM ** -0.5) * _LOG2E, *launch)
+    _build.count("attention", site, plan.route)
     return (out, lse) if want_lse else out
 
 
@@ -221,13 +294,14 @@ def attention_bwd_prep_plain(o, lse, do, plan: BwdPlan):
 
 
 def attention_bwd(q, k, v, o, lse, do, heads: int, valid_k: Optional[int] = None,
-                  site: str = "spatial"):
+                  site: str = "spatial", route: Optional[str] = None):
     """dq, dk, dv: ``csrc/attention_bwd.cu`` on CUDA tensors, the plain
-    version on CPU tensors. The route is :func:`attention_bwd_plan`'s: up
-    to ``SMALL_KEYS`` keys (the temporal t = 25 attention, the 45-key mid
-    site at 320x576) the mma.sync kernels, more keys the wgmma kernels;
-    the mma.sync ones are the faster below that line on an H100 (PERF.md
-    §6, "route crossover")."""
+    version on CPU tensors. The route is :func:`attention_bwd_plan`'s
+    (``route`` forces one, for measurements and the card tests): up to
+    ``SMALL_KEYS`` keys (the temporal t = 25 attention, the 45-key mid site
+    at 320x576) the mma.sync kernels, more keys the wgmma kernels; the
+    mma.sync ones are the faster below that line on an H100 (PERF.md §6,
+    "route crossover")."""
     if _build.on_cpu(q, k, v, do):
         return attention_bwd_plain(q, k, v, o, lse, do, heads, valid_k)
     _check_qkv(q, k, v, heads)
@@ -235,23 +309,14 @@ def attention_bwd(q, k, v, o, lse, do, heads: int, valid_k: Optional[int] = None
     _build.check(o, "o", torch.bfloat16, (b, s_q, hd))
     _build.check(do, "do", torch.bfloat16, (b, s_q, hd))
     _build.check(lse, "lse", torch.float32, (b, heads, s_q))
-    kv_len = _kv_len(k.shape[1], valid_k)
-    plan = attention_bwd_plan(b, s_q, k.shape[1], heads, kv_len)
-    out = attention_bwd_launch(q, k, v, o, lse, do, plan)
-    _build.count("attention_bwd", site, plan.route)
-    return out
-
-
-def attention_bwd_launch(q, k, v, o, lse, do, plan: BwdPlan):
-    """The pre-pass and the kernels of one plan's route on checked CUDA
-    tensors (uncounted: :func:`attention_bwd` counts; a benchmark may force
-    a route here)."""
+    plan = attention_bwd_plan(b, s_q, k.shape[1], heads, _kv_len(k.shape[1], valid_k), route)
     rows = attention_bwd_prep(o, lse, do, plan)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     entry = "vk_attention_bwd" if plan.route == "mma" else "vk_attention_bwd_wgmma"
     _build.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   rows.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), plan.b,
                   plan.s_q, plan.s_k, plan.heads, plan.kv_len, plan.s_q_pad, HEAD_DIM ** -0.5)
+    _build.count("attention_bwd", site, plan.route)
     return dq, dk, dv
 
 
