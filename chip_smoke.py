@@ -14,7 +14,8 @@ Phases, each timed on its own line:
    with its time, the plain version's, one PyTorch library call's where one
    computes the same function, and the least time the card could take; K1
    and attention_bwd on both their routes and at their route crossovers
-   (K1's threshold in ``attention_plan`` is held to its crossover);
+   (K1's threshold in ``attention_plan`` is held to its crossover); the
+   conv dW of K4's backward in fp32 against the same products in fp32;
 4. slice: full-width VideoUNet + temporal VAE decoder in bf16 with seeded
    random weights, answering sampling requests through ``VistaEngine.sample``
    and ``decode_first_stage`` (triangle CFG 2.5, frame 0 pinned, 14/3
@@ -81,8 +82,13 @@ KERNELS = {
         replaces="vista_tpu/ops/fused_ff.py:146 (_ff_kernel, proj_out+residual); "
                  "vista_tpu/ops/fused_temporal_attn.py:138 (out-proj+residual)"),
     "gn_silu_conv3": dict(
-        route="cuda", source="vista_tpu_torch/csrc/gn_silu_conv3.cu",
+        route="cuda", source="vista_tpu_torch/csrc/gn_silu_conv3.cu (gn_silu_kernel + "
+                             "conv3_tma_kernel<EMB|RES>) with csrc/gemm_tma.cuh",
         replaces="vista_tpu/ops/temporal_conv.py:357 (_gn_conv3_kernel)"),
+    "gn_silu": dict(
+        route="cuda", source="vista_tpu_torch/csrc/gn_silu_conv3.cu (gn_silu_kernel)",
+        replaces="vista_tpu/ops/temporal_conv.py:357 (_gn_conv3_kernel, its GroupNorm affine "
+                 "+ SiLU of each tap)"),
     "layer_norm": dict(
         route="cuda", source="vista_tpu_torch/csrc/layer_norm.cu",
         replaces="vista_tpu/ops/norms.py:140 (_ln_kernel)"),
@@ -104,7 +110,8 @@ KERNELS = {
         replaces="vista_tpu/ops/fused_ff.py:307 (_ff_bwd_kernel, dh and hg); "
                  "vista_tpu/ops/fused_ff.py:434 (_ff_bwd_wide_kernel, dh and hg)"),
     "conv3": dict(
-        route="cuda", source="vista_tpu_torch/csrc/gn_silu_conv3.cu (vk_conv3)",
+        route="cuda", source="vista_tpu_torch/csrc/gn_silu_conv3.cu (conv3_tma_kernel<NONE>) "
+                             "with csrc/gemm_tma.cuh",
         replaces="vista_tpu/ops/temporal_conv.py:155 (_conv3_kernel)"),
     "qkv_bwd": dict(
         route="cuda", source="vista_tpu_torch/csrc/qkv_bwd.cu (vk_seg_gemm) with "
@@ -119,8 +126,8 @@ KERNELS = {
         replaces="vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, out-projection "
                  "backward: do, dWo, dbo)"),
 }
-SAMPLE_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3")
-TRAIN_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3",
+SAMPLE_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3", "gn_silu")
+TRAIN_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3", "gn_silu",
                  "layer_norm", "attention_bwd", "ff_bwd", "ff_bwd_dh", "conv3")
 PHASE1_KERNELS = TRAIN_KERNELS + ("qkv_bwd", "linear_residual_bwd")
 # both routes of K1 run on every path and both of attention_bwd on each
@@ -137,8 +144,8 @@ SYMBOLS = {
     "attention": ("vk::attention_kernel<", "vk::attention_wgmma_kernel<"),
     "ln_linear": ("vk::ln_linear_kernel", "vk::ln_stats_kernel"),
     "linear_residual": ("vk::linear_residual_tma_kernel",),
-    "gn_silu_conv3": ("vk::gn_silu_conv3_kernel<true>",),
-    "conv3": ("vk::gn_silu_conv3_kernel<false>",),
+    "gn_silu_conv3": ("vk::gn_silu_kernel", "vk::conv3_tma_kernel<1>", "vk::conv3_tma_kernel<2>"),
+    "conv3": ("vk::conv3_tma_kernel<0>",),
     "layer_norm": ("vk::layer_norm_kernel",),
     "attention_bwd dK/dV (wgmma)": ("vk::attn_bwd_dkv_wgmma",),
     "attention_bwd dQ (wgmma)": ("vk::attn_bwd_dq_wgmma",),
@@ -277,12 +284,15 @@ def full_fp32():
 
 
 def compare(name, shape, kernel_fn, plain_fn, plain_inputs_fn, rows, flops, nbytes,
-            library_fn=None, reps=5, exp2=0):
+            library_fn=None, reps=5, exp2=0, extra_bytes=0):
     """Run the kernel and its plain version in fp32 (no TF32) on the same bf16
     inputs, compare every output (each normalised by its own largest
     magnitude), and time the kernel, the plain version on the bf16 inputs
     and the library call. ``exp2``: the exp2 a softmax kernel must take,
-    part of its bound (and shown beside it)."""
+    part of its bound (and shown beside it). ``extra_bytes``: what the
+    design moves beyond each input read once and each output written once
+    (an intermediate's round trip); its bound is shown in brackets and
+    kept in the row, the bound itself is not changed."""
     got = kernel_fn()
     torch.cuda.synchronize()
     with full_fp32():
@@ -299,13 +309,16 @@ def compare(name, shape, kernel_fn, plain_fn, plain_inputs_fn, rows, flops, nbyt
     bound_ms, bound_by = bound(flops, nbytes, exp2)
     rel = max(rels)
     ok = all(math.isfinite(r) and r <= TOL for r in rels)
+    design_ms = bound(flops, nbytes + extra_bytes, exp2)[0] if extra_bytes else None
     rows.append(dict(kernel=name, shape=shape, max_abs_err=max(errs), rel_err=rel,
                      rel_err_per_output=rels, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                     bound_ms=bound_ms, bound_by=bound_by, ok=ok))
+                     bound_ms=bound_ms, bound_by=bound_by, design_bound_ms=design_ms, ok=ok))
     lib = "none" if library_ms is None else f"{library_ms:8.3f} ms"
     by = f"{bound_by}; exp2 {exp2 / PEAK_EXP2 * 1e3:.3f}" if exp2 else bound_by
+    design = (f" [+{extra_bytes / 1e6:.0f} MB of the design: {design_ms:.3f} ms]"
+              if extra_bytes else "")
     log(f"  {name:16s} {shape:38s} rel {rel:.2e}  kernel {ms:9.3f} ms  plain "
-        f"{plain_ms:9.3f} ms  library {lib}  bound {bound_ms:.3f} ms ({by})  "
+        f"{plain_ms:9.3f} ms  library {lib}  bound {bound_ms:.3f} ms ({by}){design}  "
         f"{'ok' if ok else 'FAIL'}")
     torch.cuda.empty_cache()
     return ok
@@ -324,8 +337,9 @@ def kernel_checks():
     from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_plain,
                                             ln_linear, ln_linear_plain)
     from vista_tpu_torch.ops.norms import layer_norm_kernel, layer_norm_plain
-    from vista_tpu_torch.ops.temporal_conv import (_flipped_taps, conv3, conv3_plain,
-                                                   gn_silu_conv3, gn_silu_conv3_plain)
+    from vista_tpu_torch.ops.temporal_conv import (_flipped_taps, conv3, conv3_plain, gn_silu,
+                                                   gn_silu_conv3, gn_silu_conv3_plain,
+                                                   gn_silu_plain)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -435,27 +449,43 @@ def kernel_checks():
                                                            b1b)))
             del w1
         del x
-    # K4 at (50, 9216, 320) and (50, 576, 1280), both epilogues, t = 25.
-    for bt, s, c in [(50, 9216, 320), (50, 576, 1280)]:
+    # K4 at its four sites of the 576x1024 request and the ragged mid site
+    # of 320x576 (1125 rows a clip), both epilogues, t = 25 over the two
+    # clips of the doubled batch; beside each, its pre-pass alone. Library:
+    # F.conv3d on the same xn, "conv only" (no one call computes GN + SiLU +
+    # conv + epilogue). The K4 bound is the function's; the design's extra
+    # write and read of xn are shown in brackets.
+    for bt, s, c, tag in [(50, 9216, 320, "ds1"), (50, 2304, 640, "ds2"), (50, 576, 1280, "ds4"),
+                          (50, 144, 1280, "mid"), (50, 45, 1280, "mid 320x576")]:
         x = rnd(bt, s, c)
         sc, sh = rnd(bt, c, std=0.5, dtype=torch.float32), rnd(bt, c, std=0.5, dtype=torch.float32)
         w, b = rnd(c, c, 3, 1, 1, std=(3 * c) ** -0.5), rnd(c, std=0.1, dtype=torch.float32)
+        bb = b.to(bf)
         emb = rnd(bt, c, dtype=torch.float32)
         m = bt * s
-        ok &= compare("gn_silu_conv3", f"emb ({bt},{s},{c})",
+        ok &= compare("gn_silu", f"pre-pass {tag} ({bt},{s},{c})",
+                      lambda: gn_silu(x, sc, sh), lambda: gn_silu_plain(x, sc, sh),
+                      lambda: gn_silu_plain(*f32(x, sc, sh)), rows, 0,
+                      2 * 2 * m * c + 2 * 4 * bt * c, exp2=m * c)
+        xn5 = gn_silu(x, sc, sh).view(bt // 25, 25, s, c).permute(0, 3, 1, 2)[..., None]
+        conv_only = lambda: time_ms(lambda: F.conv3d(xn5, w, bb, padding=(1, 0, 0)))
+        ok &= compare("gn_silu_conv3", f"emb {tag} ({bt},{s},{c})",
                       lambda: gn_silu_conv3(x, sc, sh, w, b, 25, emb=emb),
                       lambda: gn_silu_conv3_plain(x, sc, sh, w, b, 25, emb=emb),
                       lambda: gn_silu_conv3_plain(*f32(x, sc, sh, w, b), 25, emb=emb), rows,
-                      6 * m * c * c, 2 * (2 * m * c + 3 * c * c))
+                      6 * m * c * c, 2 * (2 * m * c + 3 * c * c), conv_only,
+                      extra_bytes=2 * 2 * m * c)
         rs = torch.full((1,), 0.4, device=dev)
-        ok &= compare("gn_silu_conv3", f"res ({bt},{s},{c})",
+        ok &= compare("gn_silu_conv3", f"res {tag} ({bt},{s},{c})",
                       lambda: gn_silu_conv3(x, sc, sh, w, b, 25, residual=x, res_scale=rs),
                       lambda: gn_silu_conv3_plain(x, sc, sh, w, b, 25, residual=x,
                                                   res_scale=rs),
                       lambda: gn_silu_conv3_plain(*f32(x, sc, sh, w, b), 25,
                                                   residual=x.float(), res_scale=rs), rows,
-                      6 * m * c * c, 2 * (3 * m * c + 3 * c * c))
-        del x
+                      6 * m * c * c, 2 * (3 * m * c + 3 * c * c), conv_only,
+                      extra_bytes=2 * 2 * m * c)
+        del x, xn5
+        torch.cuda.empty_cache()
 
     # The training path's kernels at the phase-2 shapes: 320x576 -> 40x72
     # latents, 25 frames, batch 1.
@@ -510,7 +540,9 @@ def kernel_checks():
                       64 * m * c * c, 2 * (3 * m * c + 2 * 12 * c * c),
                       lambda: ff_composite_bwd_ms(x, lw, lb, w1, b1, w2), reps=3)
         del x, dy
-    for bt, s, c in [(25, 2880, 320), (25, 720, 640)]:
+    # conv3 (dx of K4's backward) at 320x576 ds1 and ds2 and at the phase-1
+    # ds1 shape (576x1024)
+    for bt, s, c in [(25, 2880, 320), (25, 720, 640), (25, 9216, 320)]:
         gy = rnd(bt, s, c)
         w = rnd(c, c, 3, 1, 1, std=(3 * c) ** -0.5)
         wt = _flipped_taps(w)
@@ -738,7 +770,43 @@ def phase1_kernel_checks(rnd, f32, rows):
                   lambda: ff_composite_bwd_ms(x, lw, lb, w1, b1, w2), reps=3)
     del x, dy
     torch.cuda.empty_cache()
+    ok &= conv3_dw_check(rnd, rows)
     return ok
+
+
+DW_TOL = 1e-5  # conv3's dW in fp32 against fp32: the order of the sums differs, nothing else
+
+
+def conv3_dw_check(rnd, rows):
+    """K4's and conv3's dW at the phase-1 ds1 shape (25 frames, 9216 tokens,
+    320 channels; 230400 tokens contracted): the port's three tap products
+    summed in fp32 (``weight_grad``) against the same products in fp32 on
+    the card, held to ``DW_TOL``; beside it, as the library column, a bf16
+    matmul with bf16 output per tap (the port's route before), with its own
+    error against the same reference."""
+    from vista_tpu_torch.ops.temporal_conv import _conv3_weight_grad
+
+    t, s, c = 25, 9216, 320
+    xn, gy = rnd(t, s, c), rnd(t, s, c)
+    n = t * s
+    g2, a2 = gy.view(n, c), xn.view(n, c)
+    spans = [(g2[s:], a2[:n - s]), (g2, a2), (g2[:n - s], a2[s:])]
+    fp32 = lambda: torch.stack([g.float().t() @ a.float() for g, a in spans], -1)
+    bf16_out = lambda: torch.stack([(g.t() @ a).float() for g, a in spans], -1)
+    ok = compare("conv3_dw", f"({t},{s},{c}) 3 taps, fp32 sums (weight_grad)",
+                 lambda: _conv3_weight_grad(xn, gy, t, (c, c, 3)), fp32, fp32, rows,
+                 6 * n * c * c, 2 * 2 * n * c + 4 * 3 * c * c,
+                 lambda: time_ms(bf16_out))
+    with full_fp32():
+        ref = fp32()
+    row = rows[-1]
+    row["bf16_out_rel_err"] = ((bf16_out() - ref).abs().max() / ref.abs().max()).item()
+    log(f"  conv3 dW: fp32 sums rel err {row['rel_err']:.2e} ({row['ms']:.3f} ms) against "
+        f"bf16 matmuls with bf16 output {row['bf16_out_rel_err']:.2e} "
+        f"({row['library_ms']:.3f} ms); limit {DW_TOL:g}")
+    del xn, gy, ref
+    torch.cuda.empty_cache()
+    return ok and row["rel_err"] <= DW_TOL
 
 
 def ff_composite_bwd_ms(x, lw, lb, w1, b1, w2):
@@ -898,7 +966,7 @@ def run_request(engine, inputs, steps):
 
 
 def small_cfg(kind="sample"):
-    """Widths the kernels take (head_dim 64, c % 32 == 0), fp32. ``kind``:
+    """Widths the kernels take (head_dim 64, c % 64 == 0), fp32. ``kind``:
     ``"sample"``; ``"phase2"``, LoRA + action control and the phase-2
     conditioner; ``"phase1"``, neither, ucg dropout on the default keys,
     remat."""
@@ -1085,7 +1153,7 @@ def slice_run(seed, profile=False):
     missing = missing_launches(SAMPLE_KERNELS + ATTENTION_ROUTES, [
         "attention/spatial-long", "attention/spatial-short", "attention/temporal",
         "ln_linear/qkv", "ln_linear/ff", "linear_residual/ff",
-        "gn_silu_conv3/emb", "gn_silu_conv3/res"])
+        "gn_silu_conv3/emb", "gn_silu_conv3/res", "gn_silu/emb", "gn_silu/res"])
     if profile:
         phase("profile", profile_request, engine, cfg, gen)
     if missing:
@@ -1228,7 +1296,7 @@ def train_run(seed):
         "attention/spatial-long", "attention/spatial-short", "attention/temporal",
         "attention_bwd/spatial-long", "attention_bwd/spatial-short", "attention_bwd/temporal",
         "ln_linear/ff", "linear_residual/ff", "ff_bwd/ff", "gn_silu_conv3/emb",
-        "gn_silu_conv3/res", "conv3/emb-dx", "conv3/res-dx"])
+        "gn_silu_conv3/res", "gn_silu/emb", "gn_silu/res", "conv3/emb-dx", "conv3/res-dx"])
     if missing:
         raise SystemExit(f"kernels or call sites never launched on the train path: {missing}")
     changed = [n for n, m in trainer.master.items() if not torch.equal(m, start[n])]
@@ -1514,7 +1582,8 @@ def phase1_run(seed):
         "attention/spatial-long", "attention/spatial-short", "attention/temporal",
         "attention_bwd/spatial-long", "attention_bwd/spatial-short", "attention_bwd/temporal",
         "ln_linear/ff", "linear_residual/ff", "ff_bwd/ff", "gn_silu_conv3/emb",
-        "gn_silu_conv3/res", "conv3/emb-dx", "conv3/res-dx", "conv3/res-y"])
+        "gn_silu_conv3/res", "gn_silu/emb", "gn_silu/res", "conv3/emb-dx", "conv3/res-dx",
+        "conv3/res-y"])
     if missing:
         faults.append(f"kernels or call sites never launched on the phase-1 path: {missing}")
     if faults:

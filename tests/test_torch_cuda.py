@@ -25,8 +25,10 @@ from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_bwd,
                                         ln_linear_split_bwd_plain, seg_gemm, seg_gemm_plain,
                                         weight_grad, weight_grad_plain, wgrad_plan)
 from vista_tpu_torch.ops.norms import layer_norm_kernel, layer_norm_plain
-from vista_tpu_torch.ops.temporal_conv import (conv3, conv3_plain, gn_silu_conv3,
-                                               gn_silu_conv3_plain)
+from vista_tpu_torch.ops.temporal_conv import (_conv3_weight_grad, conv3, conv3_plain,
+                                               fused_gn_silu_conv3_emb, fused_gn_silu_conv3_res,
+                                               gn_silu, gn_silu_conv3, gn_silu_conv3_plain,
+                                               gn_silu_plain)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-2
@@ -122,19 +124,6 @@ def test_linear_residual_is_deterministic(rnd):
     a, w, res = rnd(3000, 1280), rnd(320, 1280, std=1280 ** -0.5), rnd(3000, 320)
     b = rnd(320, std=0.1, dtype=torch.float32)
     assert torch.equal(linear_residual(a, w, b, res), linear_residual(a, w, b, res))
-
-
-@pytest.mark.parametrize("cout,epilogue", [(96, "emb"), (64, "res")])
-def test_gn_silu_conv3(rnd, cout, epilogue):
-    t, bt, s, cin = 5, 10, 45, 64
-    x = rnd(bt, s, cin)
-    sc, sh = rnd(bt, cin, std=0.5, dtype=torch.float32), rnd(bt, cin, std=0.5, dtype=torch.float32)
-    w, b = rnd(cout, cin, 3, 1, 1, std=(3 * cin) ** -0.5), rnd(cout, std=0.1, dtype=torch.float32)
-    kw = dict(emb=rnd(bt, cout, dtype=torch.float32)) if epilogue == "emb" else dict(
-        residual=rnd(bt, s, cout), res_scale=torch.full((1,), 0.3, device="cuda"))
-    ref_kw = {k: v.float() for k, v in kw.items()}
-    _check(gn_silu_conv3(x, sc, sh, w, b, t, **kw),
-           gn_silu_conv3_plain(*_f32(x, sc, sh, w, b), t, **ref_kw))
 
 
 @pytest.mark.parametrize("route", ["wgmma", "mma"])
@@ -301,13 +290,112 @@ def test_ff_bwd_dh_is_deterministic(rnd):
         assert torch.equal(t, u)
 
 
-@pytest.mark.parametrize("cout,with_bias", [(96, True), (64, False)])
-def test_conv3(rnd, cout, with_bias):
-    t, bt, s, cin = 5, 10, 45, 64
+# (clips, t, s, cin, cout): ragged s (45, 180: the last 128-row tile of a
+# clip is partial), two and three clips back to back, cin 64, 320 and 1280,
+# a ragged column tile (328)
+K4_SHAPES = [(2, 5, 45, 64, 96), (2, 5, 45, 64, 64), (3, 4, 180, 320, 320),
+             (2, 25, 45, 1280, 1280), (3, 5, 180, 64, 328)]
+
+
+def _k4_inputs(rnd, clips, t, s, cin, cout):
+    """Per-frame scale and shift, the shift well away from 0 (a zero-filled
+    edge row must stay 0 after the affine + SiLU, not become SiLU(shift))."""
+    bt = clips * t
     x = rnd(bt, s, cin)
+    sc = rnd(bt, cin, std=0.5, dtype=torch.float32) + 1
+    sh = rnd(bt, cin, std=0.3, dtype=torch.float32) + 1.5
+    w = rnd(cout, cin, 3, 1, 1, std=(3 * cin) ** -0.5)
+    b = rnd(cout, std=0.1, dtype=torch.float32)
+    return x, sc, sh, w, b
+
+
+@pytest.mark.parametrize("epilogue", ["emb", "res"])
+@pytest.mark.parametrize("clips,t,s,cin,cout", K4_SHAPES)
+def test_gn_silu_conv3(rnd, clips, t, s, cin, cout, epilogue):
+    x, sc, sh, w, b = _k4_inputs(rnd, clips, t, s, cin, cout)
+    bt = clips * t
+    kw = dict(emb=rnd(bt, cout, dtype=torch.float32)) if epilogue == "emb" else dict(
+        residual=rnd(bt, s, cout), res_scale=torch.full((1,), 0.3, device="cuda"))
+    ref_kw = {k: v.float() for k, v in kw.items()}
+    before = _build.LAUNCHES["gn_silu_conv3"]
+    _check(gn_silu_conv3(x, sc, sh, w, b, t, **kw),
+           gn_silu_conv3_plain(*_f32(x, sc, sh, w, b), t, **ref_kw))
+    assert _build.LAUNCHES["gn_silu_conv3"] == before + 1
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("clips,t,s,cin,cout", K4_SHAPES)
+def test_conv3(rnd, clips, t, s, cin, cout, with_bias):
+    x = rnd(clips * t, s, cin)
     w = rnd(cout, cin, 3, 1, 1, std=(3 * cin) ** -0.5)
     b = rnd(cout, std=0.1, dtype=torch.float32) if with_bias else None
     _check(conv3(x, w, b, t), conv3_plain(*_f32(x, w, b), t))
+
+
+@pytest.mark.parametrize("clips,t,s,c", [(2, 5, 45, 64), (2, 25, 180, 1280)])
+def test_gn_silu(rnd, clips, t, s, c):
+    """The pre-pass alone: one bf16 rounding of SiLU(x * scale + shift)."""
+    x, sc, sh, _, _ = _k4_inputs(rnd, clips, t, s, c, 8)
+    _check(gn_silu(x, sc, sh), gn_silu_plain(*_f32(x, sc, sh)))
+
+
+def test_gn_silu_conv3_is_deterministic(rnd):
+    """No split-K: two launches give the same bits, in K4 and in conv3."""
+    x, sc, sh, w, b = _k4_inputs(rnd, 2, 25, 180, 320, 320)
+    emb = rnd(50, 320, dtype=torch.float32)
+    assert torch.equal(gn_silu_conv3(x, sc, sh, w, b, 25, emb=emb),
+                       gn_silu_conv3(x, sc, sh, w, b, 25, emb=emb))
+    assert torch.equal(conv3(x, w, b, 25), conv3(x, w, b, 25))
+
+
+@pytest.mark.parametrize("cin,cout,t", [(32, 64, 5), (64, 12, 5), (64, 64, 3)])
+def test_gn_silu_conv3_refuses_before_launching(rnd, cin, cout, t):
+    x, sc, sh, w, b = _k4_inputs(rnd, 2, 5, 45, cin, cout)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError):
+        gn_silu_conv3(x, sc, sh, w, b, t, emb=rnd(10, cout, dtype=torch.float32))
+    with pytest.raises(ValueError):
+        conv3(x, w, b, t)
+    assert dict(_build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("epilogue", ["emb", "res"])
+def test_gn_silu_conv3_grads(rnd, epilogue):
+    """K4 under autograd (its backward: conv3 for dx and, for ``res``, y;
+    the fp32 dW) against the same autograd on the CPU in fp32, where every
+    step is the plain version."""
+    clips, t, s, c = 2, 5, 45, 64
+    x, sc, sh, w, b = _k4_inputs(rnd, clips, t, s, c, c)
+    bt = clips * t
+    extra = [rnd(bt, c, dtype=torch.float32)] if epilogue == "emb" else [
+        rnd(bt, s, c), torch.full((1,), 0.3, device="cuda")]
+    fn = fused_gn_silu_conv3_emb if epilogue == "emb" else fused_gn_silu_conv3_res
+    gy = rnd(bt, s, c)
+    card = [a.detach().requires_grad_() for a in (x, sc, sh, w, b, *extra)]
+    got = torch.autograd.grad(fn(*card, t), card, gy)
+    cpu = [a.detach().float().cpu().requires_grad_() for a in (x, sc, sh, w, b, *extra)]
+    ref = torch.autograd.grad(fn(*cpu, t), cpu, gy.float().cpu())
+    for g, r in zip(got, ref):
+        _check(g.cpu(), r)
+
+
+def test_conv3_weight_grad_precision(rnd):
+    """K4's and conv3's dW at the phase-1 ds1 shape (25 frames, 9216 tokens,
+    320 channels: 230400 tokens contracted) against the same product summed
+    in fp32 on the card, beside a bf16 matmul with bf16 output (the route
+    it replaced). The fp32 sums differ from the reference in order only."""
+    t, s, c = 25, 9216, 320
+    xn, gy = rnd(t, s, c), rnd(t, s, c)
+    got = _conv3_weight_grad(xn, gy, t, (c, c, 3, 1, 1)).reshape(c, c, 3)
+    xf, gf = xn.float(), gy.float()
+    spans = [(gf[1:], xf[:-1]), (gf, xf), (gf[:-1], xf[1:])]
+    ref = torch.stack([g.reshape(-1, c).t() @ a.reshape(-1, c) for g, a in spans], -1)
+    bf16 = torch.stack([(g.reshape(-1, c).t().bfloat16() @ a.reshape(-1, c).bfloat16()).float()
+                        for g, a in spans], -1)
+    scale = ref.abs().max()
+    err, bf16_err = ((got - ref).abs().max() / scale).item(), ((bf16 - ref).abs().max() / scale).item()
+    assert got.dtype == torch.float32
+    assert err <= 1e-5 and err < bf16_err, (err, bf16_err)
 
 
 @pytest.mark.parametrize("shape,splits", [((300, 96), 3), ((5, 25, 64), 3), ((129, 64), 1)])

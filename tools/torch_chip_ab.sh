@@ -1,11 +1,10 @@
 #!/bin/bash
 # A/B of two trees of the PyTorch port on one card, in turns: parent,
 # change, change, parent. Each run is the tree's own `chip_smoke.py
-# --profile`, then tools/torch_ff_bwd_dh_alone.py and
-# tools/torch_attention_alone.py in the same tree; after the four runs, the
-# change's card tests and a comparison of the SASS of the kernels that both
-# trees build from shared code (the GEMM skeleton's and attention_bwd's
-# wgmma kernels).
+# --profile`, then tools/torch_ff_bwd_dh_alone.py, tools/torch_attention_alone.py
+# and tools/torch_k4_alone.py in the same tree; after the four runs, the
+# change's card tests and a comparison of the SASS of every kernel that the
+# two libraries share by name (a kernel in one tree only is listed as such).
 #
 # Unpack both trees into a gitignored directory first, e.g.
 #   git archive <parent commit> | tar -x -C build/ab/parent
@@ -47,7 +46,8 @@ for side in parent change change parent; do
   (cd "$dir" && timeout -k 10 1150 python3 chip_smoke.py --profile > "$log" 2>&1
    echo "rc=$?" >> "$log"
    timeout -k 10 120 python3 "$HERE/tools/torch_ff_bwd_dh_alone.py" >> "$log" 2>&1
-   timeout -k 10 120 python3 "$HERE/tools/torch_attention_alone.py" >> "$log" 2>&1)
+   timeout -k 10 120 python3 "$HERE/tools/torch_attention_alone.py" >> "$log" 2>&1
+   timeout -k 10 120 python3 "$HERE/tools/torch_k4_alone.py" >> "$log" 2>&1)
   rm -rf "$OUT/run${i}_${side}_out"
   mv "$dir/$RESULTS" "$OUT/run${i}_${side}_out" 2>/dev/null
   echo "== run $i $side"
@@ -64,13 +64,13 @@ def kernels(so):
     out = {}
     for part in re.split(r"\n\s*Function : ", dump)[1:]:
         name, body = part.split("\n", 1)
-        if any(k in name for k in ("wgrad_tma_kernel", "seg_gemm_tma_kernel", "attn_bwd_")):
-            out[name.strip()] = body
+        out[name.strip()] = body
     return out
 
 a, b = kernels(sys.argv[1]), kernels(sys.argv[2])
 for name in sorted(set(a) | set(b)):
-    same = "identical SASS" if a.get(name) == b.get(name) else "DIFFERENT SASS"
+    same = ("only in parent" if name not in b else "only in change" if name not in a else
+            "identical SASS" if a[name] == b[name] else "DIFFERENT SASS")
     print(f"{name}: {same} ({len(a.get(name, '').splitlines())} / "
           f"{len(b.get(name, '').splitlines())} lines)")
 PY

@@ -1,17 +1,14 @@
 // Shared pieces of the hand-written Hopper kernels: bf16 tensor-core MMA
-// (mma.sync m16n8k16, fp32 accumulate), fragment loads from shared memory,
-// bf16 packing, the erf GELU and its derivative, and a 128x128x32 block-tile
-// GEMM main loop whose A- and B-tile loaders are supplied by the kernel.
-// That main loop now serves K4 alone (csrc/gn_silu_conv3.cu, where the
-// GroupNorm + SiLU prologue lives in the A loader); the GEMMs of K2, K3 and
-// the backward kernels run on TMA + wgmma (csrc/hopper.cuh, gemm_tma.cuh).
+// (mma.sync m16n8k16, fp32 accumulate) for the Sk <= 64 attention routes,
+// fragment loads from shared memory, bf16 packing, and the erf GELU and its
+// derivative. The GEMMs run on TMA + wgmma (csrc/hopper.cuh, gemm_tma.cuh).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
 //   B 16x8 "col":      b0 (k 2t..2t+1, n g)  b1 (k 2t+8.., n g)
 //   C 16x8 fp32:       c0,c1 (g, 2t..2t+1)   c2,c3 (g+8, 2t..2t+1)
-// B operands are read from weights stored as (N, K) row-major, the layout of
-// torch.nn.Linear.weight, so a B fragment is one 32-bit load.
+// B operands are read from tiles stored as (N, K) row-major, so a B
+// fragment is one 32-bit load.
 #pragma once
 
 #include <math.h>
@@ -99,89 +96,6 @@ __device__ __forceinline__ float gelu_erf_with_grad(float x, float& grad) {
   const float cdf = 0.5f * (1.f + copysignf(1.f - erf_tail(z) * ex, x));
   grad = fmaf(x * 0.3989422804014327f, ex, cdf);
   return x * cdf;
-}
-
-// ---- block-tile GEMM: C[128 x 128] = A[128 x K] * B[128 x K]^T ----
-// 256 threads = 8 warps as 2 (rows) x 4 (columns); each warp owns 64 x 32
-// of the tile as 4 x 4 m16n8 accumulators. A slice of BK = 32 along K is
-// staged in shared memory; the next slice is fetched into registers while
-// the tensor cores work on the current one.
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int SK = BK + 8;  // padded row stride (bf16) against bank conflicts
-constexpr int GEMM_THREADS = 256;
-
-struct GemmSmem {
-  bf16 a[BM * SK];
-  bf16 b[BN * SK];
-};
-
-__device__ __forceinline__ void mma_slice(const bf16* As, const bf16* Bs,
-                                          float acc[4][4][4], int wm, int wn,
-                                          int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < BK; ks += 16) {
-    uint32_t bfr[4][2];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bf16* p = Bs + (wn * 32 + j * 8 + g) * SK + ks + t * 2;
-      bfr[j][0] = ld32(p);
-      bfr[j][1] = ld32(p + 8);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const bf16* p = As + (wm * 64 + i * 16 + g) * SK + ks + t * 2;
-      uint32_t afr[4] = {ld32(p), ld32(p + 8 * SK), ld32(p + 8),
-                         ld32(p + 8 * SK + 8)};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_16816(acc[i][j], afr, bfr[j]);
-    }
-  }
-}
-
-// load_a(row, k) / load_b(row, k) return the 8 bf16 values at tile row
-// ``row`` (0..127) and K offset ``k`` (a multiple of 8). K % BK == 0.
-template <class LoadA, class LoadB>
-__device__ __forceinline__ void gemm_mainloop(int K, const LoadA& load_a,
-                                              const LoadB& load_b,
-                                              GemmSmem& sm,
-                                              float acc[4][4][4]) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  uint4 ra[2], rb[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int c = tid + r * GEMM_THREADS;
-    ra[r] = load_a(c >> 2, (c & 3) * 8);
-    rb[r] = load_b(c >> 2, (c & 3) * 8);
-  }
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int c = tid + r * GEMM_THREADS;
-      const int off = (c >> 2) * SK + (c & 3) * 8;
-      *reinterpret_cast<uint4*>(&sm.a[off]) = ra[r];
-      *reinterpret_cast<uint4*>(&sm.b[off]) = rb[r];
-    }
-    __syncthreads();
-    if (k0 + BK < K) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int c = tid + r * GEMM_THREADS;
-        ra[r] = load_a(c >> 2, k0 + BK + (c & 3) * 8);
-        rb[r] = load_b(c >> 2, k0 + BK + (c & 3) * 8);
-      }
-    }
-    mma_slice(sm.a, sm.b, acc, wm, wn, lane);
-    __syncthreads();
-  }
 }
 
 }  // namespace vk

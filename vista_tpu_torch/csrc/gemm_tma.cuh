@@ -1,6 +1,6 @@
 // The TMA + wgmma GEMM skeleton that vk_wgrad (csrc/ff_bwd.cu), vk_seg_gemm
-// (csrc/qkv_bwd.cu), K3 linear_residual (csrc/linear_residual.cu) and
-// ff_bwd_dh (csrc/ff_bwd.cu) share: a persistent block of three warpgroups
+// (csrc/qkv_bwd.cu), K3 linear_residual (csrc/linear_residual.cu),
+// ff_bwd_dh (csrc/ff_bwd.cu) and K4's conv (csrc/gn_silu_conv3.cu) share: a persistent block of three warpgroups
 // walks work items, each a 128-row fp32 output tile summed over a run of
 // 64-deep stages that TMA brings into a ring of shared-memory stages.
 //
@@ -24,7 +24,7 @@
 //       then one 256-row K-major tile that m64n256 reads through one
 //       desc_sw128 (SBO 1024 B), and m64n64 reads box 4, as K2 reads W.
 //     A is MN-major in vk_wgrad (a box of token rows of an activation) and
-//     K-major in vk_seg_gemm, K3 and ff_bwd_dh.
+//     K-major in vk_seg_gemm, K3, ff_bwd_dh and K4's conv.
 //   - Out-of-range rows, columns and depth arrive from TMA as zeros, so the
 //     ragged edges need no masks in the main loop; the epilogue drops what
 //     lies outside the output.
@@ -134,6 +134,14 @@ __device__ __forceinline__ void tg_mainloop(Ring<STAGES>& r, Acc& acc, int stage
   wgmma_wait<0>();
   acc.fence();
   if (lane == 0) mbar_arrive(done);
+}
+
+// Accumulator pair p (0..39: 64-column box p / 8, column 8 (p % 8) + 2 t)
+// of row half i, in the wgmma D layout (csrc/hopper.cuh). p and i are
+// compile-time after unrolling, so this is a register.
+__device__ __forceinline__ float2 tg_pair(const TgAcc& acc, int p, int i) {
+  return p < 32 ? make_float2(acc.a[4 * p + 2 * i], acc.a[4 * p + 2 * i + 1])
+                : make_float2(acc.b[4 * (p - 32) + 2 * i], acc.b[4 * (p - 32) + 2 * i + 1]);
 }
 
 // Hands each accumulator pair to store(row, col, v0, v1): row (0..127) and

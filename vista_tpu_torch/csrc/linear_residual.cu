@@ -55,14 +55,6 @@ constexpr int K3_STG_BYTES = 2 * K3_STG_BOXES * TG_BOX_BYTES;
 constexpr int K3_SMEM =
     1024 + K3_STAGES * TG_STAGE_BYTES + K3_STG_BYTES + 16 * K3_STAGES + 8 * 2 * K3_STG_BOXES;
 
-// Accumulator pair p (0..39: 64-column box p / 8, column 8 (p % 8) + 2 t)
-// of row half i, in the wgmma D layout (csrc/hopper.cuh). p and i are
-// compile-time after unrolling, so this is a register.
-__device__ __forceinline__ float2 k3_pair(const TgAcc& acc, int p, int i) {
-  return p < 32 ? make_float2(acc.a[4 * p + 2 * i], acc.a[4 * p + 2 * i + 1])
-                : make_float2(acc.b[4 * (p - 32) + 2 * i], acc.b[4 * (p - 32) + 2 * i + 1]);
-}
-
 __global__ void __launch_bounds__(TG_THREADS, 1)
 linear_residual_tma_kernel(__grid_constant__ const CUtensorMap tm_a,
                            __grid_constant__ const CUtensorMap tm_w,
@@ -140,7 +132,7 @@ linear_residual_tma_kernel(__grid_constant__ const CUtensorMap tm_a,
           for (int i = 0; i < 2; ++i) {
             uint32_t* p = reinterpret_cast<uint32_t*>(box + sw128(row + 8 * i, jj) + 4 * t);
             const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-            const float2 v = k3_pair(acc, 8 * j + jj, i);
+            const float2 v = tg_pair(acc, 8 * j + jj, i);
             *p = pack_bf16(v.x + bb.x + r.x, v.y + bb.y + r.y);
           }
         }

@@ -47,7 +47,8 @@ _SIGNATURES = {
     "vk_attention_bwd": [_P] * 8 + [_I] * 6 + [_F, _P],
     "vk_attention_bwd_wgmma": [_P] * 8 + [_I] * 6 + [_F, _P],
     "vk_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
-    "vk_conv3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vk_conv3": [_P] * 7 + [_I] * 7 + [_P],
+    "vk_gn_silu": [_P] * 4 + [_I] * 3 + [_P],
     "vk_ff_bwd_dh": [_P] * 7 + [_I] * 4 + [_P],
     "vk_ln_bwd": [_P] * 7 + [_I, _I, _I, _F, _P],
     "vk_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -56,8 +57,6 @@ _SIGNATURES = {
     "vk_seg_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vk_ln_linear": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _P],
     "vk_linear_residual": [_P] * 5 + [_I] * 4 + [_P],
-    "vk_gn_silu_conv3": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

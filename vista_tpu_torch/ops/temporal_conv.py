@@ -15,28 +15,100 @@ consecutive frames.
 
 The conv weight is in ``torch.nn.Conv3d`` layout ``(cout, cin, 3, 1, 1)``.
 
+On CUDA tensors (``csrc/gn_silu_conv3.cu``) K4 is two kernels: the pre-pass
+``vk_gn_silu`` writes ``xn = bf16(SiLU(x * scale + shift))`` once, then
+``conv3_tma_kernel`` (the entry ``vk_conv3``), a TMA + ``wgmma`` implicit
+GEMM on the skeleton of ``csrc/gemm_tma.cuh``, sums the three taps of xn
+with the epilogue. It reads xn through a 3-d map over (clips, rows, cin),
+so the zero fill past a clip's ends is the conv's padding; it launches as
+:func:`conv3_plan` says and takes cin % 64 == 0 and cout % 8 == 0.
+
 Backward (training), the JAX package's VJPs (``_emb_vjp_bwd``,
 ``_res_vjp_bwd`` and ``temporal_conv3``'s ``_vjp_bwd``): the affine + SiLU
 is recomputed in plain PyTorch (XLA in JAX); the gradient of the conv input
 is :func:`conv3` of the cotangent with flipped, transposed taps, on the
-hand-written kernel ``vk_conv3`` (``csrc/gn_silu_conv3.cu`` without its
-prologue, replacing ``_conv3_kernel``); the ``res`` epilogue's
-``res_scale`` gradient recomputes y through the same kernel. dW is three
-shifted contractions over all tokens (``torch.matmul``, XLA matmuls in
-JAX); db and demb are row sums.
+same GEMM without an epilogue (replacing ``_conv3_kernel``); the ``res``
+epilogue's ``res_scale`` gradient recomputes y through it. dW is three
+shifted contractions over all tokens, summed in fp32 as the reference asks
+(``weight_grad``: ``vk_wgrad``'s fixed-order fp32 sums); db and demb are
+row sums.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from vista_tpu_torch.ops import _build
+from vista_tpu_torch.ops.linear import (ALIGN_SLACK, BOX_BYTES, GEMM_TILE, STAGE_BYTES,
+                                        TOKEN_BOX, sm_count, weight_grad)
 
-_TILE_K = 32
+CONV3_RING = 3  # ring stages of conv3_tma_kernel
+CONV3_STG_BOXES = 3  # its residual/output boxes per consumer warpgroup
+
+
+class Conv3Plan(NamedTuple):
+    """How ``conv3_tma_kernel`` is launched for ``clips`` clips of ``rows``
+    = t s rows (``s`` a frame) and cin -> cout: ``grid`` persistent blocks,
+    block ``b`` taking work items ``b, b + grid, ...``; item ``i`` is the
+    output tile of clip ``i // col_tiles // panels``, rows ``i // col_tiles
+    % panels * tile[0]`` of that clip (those past the clip are dropped) and
+    columns ``i % col_tiles * tile[1]``, summed over ``stages`` 64-deep
+    stages (``cin // 64`` a tap) of a ring of ``ring`` stages of
+    ``stage_bytes``; ``smem`` is the dynamic shared memory a block asks for."""
+    clips: int
+    rows: int
+    s: int
+    cin: int
+    panels: int
+    tile: tuple
+    col_tiles: int
+    items: int
+    grid: int
+    stages: int
+    ring: int
+    stage_bytes: int
+    staging_bytes: int
+    smem: int
+
+    def tiles(self, block: int):
+        """The (clip, first row in the clip, first column) of each tile that
+        ``block`` takes, in order."""
+        return [(i // self.col_tiles // self.panels,
+                 i // self.col_tiles % self.panels * self.tile[0],
+                 i % self.col_tiles * self.tile[1])
+                for i in range(block, self.items, self.grid)]
+
+    def tap_row(self, row0: int, stage: int) -> int:
+        """The first row, in the clip, of the A box of ``stage`` for a tile
+        whose first row is ``row0``: the tap's frame offset times s. Rows
+        outside ``[0, rows)`` arrive as zeros."""
+        tap = stage // (self.cin // TOKEN_BOX)
+        return row0 + (tap - 1) * self.s
+
+
+def conv3_plan(b: int, t: int, s: int, cin: int, cout: int, sms: int = 132) -> Conv3Plan:
+    """The launch of the 3-tap frame conv over ``b`` clips of ``t`` frames
+    of ``s`` rows, cin -> cout: 128 x 320 tiles inside one clip (the column
+    tile fastest), 3 cin / 64 stages an item, a 3-stage ring and three 8 KB
+    residual/output boxes per consumer warpgroup, as K3. Raises on a shape
+    the kernel does not take: cin % 64 (a stage inside one tap) and cout % 8
+    (TMA's 16-byte row strides)."""
+    if min(b, t, s, cin, cout) <= 0 or cin % TOKEN_BOX or cout % 8:
+        raise ValueError(f"conv3 needs positive sizes, cin % 64 == 0 and cout % 8 == 0: "
+                         f"b={b}, t={t}, s={s}, cin={cin}, cout={cout}")
+    rows = t * s
+    panels = -(-rows // GEMM_TILE[0])
+    col_tiles = -(-cout // GEMM_TILE[1])
+    items = b * panels * col_tiles
+    staging = 2 * CONV3_STG_BOXES * BOX_BYTES
+    smem = (ALIGN_SLACK + CONV3_RING * STAGE_BYTES + staging + 16 * CONV3_RING
+            + 8 * 2 * CONV3_STG_BOXES)
+    return Conv3Plan(b, rows, s, cin, panels, GEMM_TILE, col_tiles, items, min(items, sms),
+                     3 * cin // TOKEN_BOX, CONV3_RING, STAGE_BYTES, staging, smem)
 
 
 def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -74,6 +146,62 @@ def gn_silu_conv3_plain(x, scale, shift, w, bias, num_frames, emb=None,
     return y.to(x.dtype)
 
 
+def gn_silu_plain(x, scale, shift):
+    """``bf16(SiLU(x * scale + shift))`` per (frame, channel), fp32 math."""
+    a = x.float() * scale.float()[:, None] + shift.float()[:, None]
+    return F.silu(a).to(x.dtype)
+
+
+def gn_silu(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+            site: str = "emb") -> torch.Tensor:
+    """K4's pre-pass: x ``(b*t, s, c)``, scale/shift ``(b*t, c)`` fp32 ->
+    xn like x (``vk_gn_silu`` on CUDA tensors)."""
+    if _build.on_cpu(x, scale, shift):
+        return gn_silu_plain(x, scale, shift)
+    bt, s, c = x.shape
+    if c % 8 or c > 8192 or bt > 65535:
+        raise ValueError(f"gn_silu shape not supported: {tuple(x.shape)}")
+    _build.check(x, "x", torch.bfloat16)
+    _build.check(scale, "scale", torch.float32, (bt, c))
+    _build.check(shift, "shift", torch.float32, (bt, c))
+    xn = torch.empty_like(x)
+    _build.launch("vk_gn_silu", x.data_ptr(), scale.data_ptr(), shift.data_ptr(), xn.data_ptr(),
+                  bt, s, c)
+    _build.count("gn_silu", site)
+    return xn
+
+
+def _plan(x, w, num_frames) -> Conv3Plan:
+    bt, s, cin = x.shape
+    if bt % num_frames:
+        raise ValueError(f"{bt} frames are not clips of {num_frames}")
+    return conv3_plan(bt // num_frames, num_frames, s, cin, w.shape[0],
+                      sm_count(x.device.index or 0))
+
+
+def _conv3_launch(plan, x, w, bias, emb=None, residual=None, res_scale=None):
+    """``vk_conv3`` as ``plan`` says: x ``(b*t, s, cin)`` bf16, w ``(cout,
+    cin, 3, 1, 1)``; bias fp32 or None; the EMB (``emb``) or RES
+    (``residual``, ``res_scale``) epilogue or neither."""
+    bt, s, cin = x.shape
+    cout = w.shape[0]
+    _build.check(x, "x", torch.bfloat16)
+    wk = w.reshape(cout, cin, 3).permute(0, 2, 1).contiguous()
+    _build.check(wk, "w", torch.bfloat16)
+    if bias is not None:
+        _build.check(bias, "bias", torch.float32, (cout,))
+    if emb is not None:
+        _build.check(emb, "emb", torch.float32, (bt, cout))
+    if residual is not None:
+        _build.check(residual, "residual", torch.bfloat16, (bt, s, cout))
+        _build.check(res_scale, "res_scale", torch.float32, (1,))
+    out = torch.empty(bt, s, cout, dtype=x.dtype, device=x.device)
+    _build.launch("vk_conv3", x.data_ptr(), wk.data_ptr(), _build.ptr(bias), _build.ptr(emb),
+                  _build.ptr(residual), _build.ptr(res_scale), out.data_ptr(), plan.clips,
+                  plan.rows // s, s, cin, cout, plan.grid, plan.smem)
+    return out
+
+
 def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                   w: torch.Tensor, bias: torch.Tensor, num_frames: int,
                   emb: Optional[torch.Tensor] = None,
@@ -85,30 +213,16 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     with the 0-d or one-element ``res_scale``."""
     if (residual is None) != (res_scale is None):
         raise ValueError("residual and res_scale go together")
+    if emb is not None and residual is not None:
+        raise ValueError("one epilogue: emb or residual")
     if _build.on_cpu(x, w):
         return gn_silu_conv3_plain(x, scale, shift, w, bias, num_frames, emb,
                                    residual, res_scale)
-    bt, s, cin = x.shape
-    cout = w.shape[0]
-    if bt % num_frames or cin % _TILE_K or cout % 8:
-        raise ValueError(f"K4 shape not supported: {tuple(x.shape)} -> {cout}")
-    _build.check(x, "x", torch.bfloat16)
-    _build.check(scale, "scale", torch.float32, (bt, cin))
-    _build.check(shift, "shift", torch.float32, (bt, cin))
-    _build.check(bias, "bias", torch.float32, (cout,))
-    wk = w.reshape(cout, cin, 3).permute(0, 2, 1).contiguous()
-    _build.check(wk, "w", torch.bfloat16)
-    if emb is not None:
-        _build.check(emb, "emb", torch.float32, (bt, cout))
-    if residual is not None:
-        _build.check(residual, "residual", torch.bfloat16, (bt, s, cout))
+    plan = _plan(x, w, num_frames)  # refuses a shape before any launch
+    if res_scale is not None:
         res_scale = res_scale.reshape(1)
-        _build.check(res_scale, "res_scale", torch.float32, (1,))
-    out = torch.empty(bt, s, cout, dtype=x.dtype, device=x.device)
-    _build.launch("vk_gn_silu_conv3", x.data_ptr(), scale.data_ptr(),
-                  shift.data_ptr(), wk.data_ptr(), bias.data_ptr(),
-                  _build.ptr(emb), _build.ptr(residual), _build.ptr(res_scale),
-                  out.data_ptr(), bt * s, s, num_frames, cin, cout)
+    xn = gn_silu(x, scale, shift, site)
+    out = _conv3_launch(plan, xn, w, bias, emb, residual, res_scale)
     _build.count("gn_silu_conv3", site)
     return out
 
@@ -132,22 +246,14 @@ def conv3_plain(x, w, bias, num_frames):
 def conv3(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
           num_frames: int, site: str = "dx") -> torch.Tensor:
     """The plain 3-tap frame conv: x ``(b*t, s, cin)``, w ``(cout, cin, 3, 1,
-    1)``, bias ``(cout,)`` or None. ``vk_conv3`` on CUDA tensors."""
+    1)``, bias ``(cout,)`` or None. ``vk_conv3`` (no epilogue) on CUDA
+    tensors."""
     if _build.on_cpu(x, w):
         return conv3_plain(x, w, bias, num_frames)
-    bt, s, cin = x.shape
-    cout = w.shape[0]
-    if bt % num_frames or cin % _TILE_K or cout % 8:
-        raise ValueError(f"conv3 shape not supported: {tuple(x.shape)} -> {cout}")
-    _build.check(x, "x", torch.bfloat16)
-    wk = w.reshape(cout, cin, 3).permute(0, 2, 1).contiguous()
-    _build.check(wk, "w", torch.bfloat16)
+    plan = _plan(x, w, num_frames)
     if bias is not None:
         bias = bias.float().contiguous()
-        _build.check(bias, "bias", torch.float32, (cout,))
-    out = torch.empty(bt, s, cout, dtype=x.dtype, device=x.device)
-    _build.launch("vk_conv3", x.data_ptr(), wk.data_ptr(), _build.ptr(bias),
-                  out.data_ptr(), bt * s, s, num_frames, cin, cout)
+    out = _conv3_launch(plan, x, w, bias)
     _build.count("conv3", site)
     return out
 
@@ -159,14 +265,23 @@ def _flipped_taps(w: torch.Tensor) -> torch.Tensor:
 
 
 def _conv3_weight_grad(xn, gy, num_frames, shape):
-    """dW[:, :, tap] = sum over tokens of gy[f]^T xn[f + tap - 1]."""
+    """dW[:, :, tap] = sum over tokens of gy[f]^T xn[f + tap - 1], in fp32
+    (:func:`weight_grad`, per clip and tap on its contiguous rows, the
+    clips' sums added in order)."""
     bt, s, cin = xn.shape
     cout = gy.shape[-1]
-    xv = xn.reshape(bt // num_frames, num_frames, s, cin)
-    gv = gy.reshape(bt // num_frames, num_frames, s, cout)
-    dot = lambda g, a: torch.matmul(g.reshape(-1, cout).t(), a.reshape(-1, cin)).float()
-    dw = torch.stack([dot(gv[:, 1:], xv[:, :-1]), dot(gv, xv), dot(gv[:, :-1], xv[:, 1:])], -1)
-    return dw.reshape(shape)
+    n = num_frames * s
+    xv, gv = xn.reshape(-1, n, cin), gy.reshape(-1, n, cout)
+    # (gy rows, xn rows) of each tap: tap 0 pairs gy's frames 1.. with xn's ..t-2
+    spans = [((s, n), (0, n - s)), ((0, n), (0, n)), ((0, n - s), (s, n))]
+    taps = []
+    for (g0, g1), (x0, x1) in spans:
+        dw = torch.zeros(cout, cin, dtype=torch.float32, device=xn.device)
+        if g1 > g0:
+            for c in range(xv.shape[0]):
+                dw += weight_grad(gv[c, g0:g1], xv[c, x0:x1])
+        taps.append(dw)
+    return torch.stack(taps, -1).reshape(shape)
 
 
 def conv3_vjp(x, w, gy, num_frames, needs=(True, True, True), site="dx"):
