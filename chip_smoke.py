@@ -13,8 +13,8 @@ Phases, each timed on its own line:
    on the same bf16 inputs) at the shapes of the main paths, every output,
    with its time, the plain version's, one PyTorch library call's where one
    computes the same function, and the least time the card could take; K1
-   and attention_bwd on both their routes and at their route crossovers
-   (K1's threshold in ``attention_plan`` is held to its crossover); the
+   and attention_bwd on every route that takes a shape and at their route
+   crossovers (each threshold in its plan is held to its crossover); the
    conv dW of K4's backward in fp32 against the same products in fp32;
 4. slice: full-width VideoUNet + temporal VAE decoder in bf16 with seeded
    random weights, answering sampling requests through ``VistaEngine.sample``
@@ -68,10 +68,13 @@ PEAK_EXP2 = 3.9e12
 
 KERNELS = {
     "attention": dict(
-        route="cuda", source="vista_tpu_torch/csrc/attention.cu",
-        replaces="vista_tpu/ops/flash_attention.py:194 (_flash_kernel); "
-                 "vista_tpu/ops/tiny_attention.py:95 (_tiny_kernel); "
-                 "vista_tpu/ops/fused_temporal_attn.py:138 (attention core)"),
+        route="cuda", source="vista_tpu_torch/csrc/attention.cu with "
+                             "csrc/attention_short.cuh",
+        replaces="vista_tpu/ops/flash_attention.py:194 (_flash_kernel: wgmma route); "
+                 "vista_tpu/ops/tiny_attention.py:95 (_tiny_kernel: wgmma route from 144 "
+                 "keys, short route at 45); "
+                 "vista_tpu/ops/fused_temporal_attn.py:138 (_kernel's attention core at "
+                 "t = 25: short route)"),
     "ln_linear": dict(
         route="cuda", source="vista_tpu_torch/csrc/ln_linear.cu",
         replaces="vista_tpu/ops/fused_qkv.py:95 (_qkv_kernel); "
@@ -93,11 +96,14 @@ KERNELS = {
         route="cuda", source="vista_tpu_torch/csrc/layer_norm.cu",
         replaces="vista_tpu/ops/norms.py:140 (_ln_kernel)"),
     "attention_bwd": dict(
-        route="cuda", source="vista_tpu_torch/csrc/attention_bwd.cu",
-        replaces="vista_tpu/ops/flash_attention.py:346 (_bwd_dq_kernel); "
-                 "vista_tpu/ops/flash_attention.py:368 (_bwd_dkv_kernel); "
-                 "vista_tpu/ops/tiny_attention.py:201 (_tiny_bwd_kernel); "
-                 "vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, softmax backward)"),
+        route="cuda", source="vista_tpu_torch/csrc/attention_bwd.cu with "
+                             "csrc/attention_short.cuh",
+        replaces="vista_tpu/ops/flash_attention.py:346 (_bwd_dq_kernel: wgmma route); "
+                 "vista_tpu/ops/flash_attention.py:368 (_bwd_dkv_kernel: wgmma route); "
+                 "vista_tpu/ops/tiny_attention.py:201 (_tiny_bwd_kernel: wgmma route from "
+                 "144 keys, short route at 45 and t = 25); "
+                 "vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel's softmax backward: "
+                 "short route)"),
     "ff_bwd": dict(
         route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu (ff_bwd_dh, vk_ln_bwd, vk_wgrad) "
                              "with csrc/qkv_bwd.cu (vk_seg_gemm), csrc/gemm_tma.cuh and "
@@ -131,17 +137,18 @@ TRAIN_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3", "
                  "layer_norm", "attention_bwd", "ff_bwd", "ff_bwd_dh", "conv3")
 PHASE1_KERNELS = TRAIN_KERNELS + ("qkv_bwd", "linear_residual_bwd")
 # both routes of K1 run on every path and both of attention_bwd on each
-# training path: wgmma at the spatial sites, mma.sync at the temporal ones
-ATTENTION_ROUTES = ("attention:wgmma", "attention:mma")
-ATTENTION_BWD_ROUTES = ("attention_bwd:wgmma", "attention_bwd:mma")
+# training path: wgmma at the spatial sites, short at the temporal ones
+ATTENTION_ROUTES = ("attention:wgmma", "attention:short")
+ATTENTION_BWD_ROUTES = ("attention_bwd:wgmma", "attention_bwd:short")
 # the demangled names of each group's device functions, for the profiles
 # (the first group whose prefix matches takes a kernel); vk_wgrad, seg_gemm,
 # the LN backward and the split-K reductions serve ff_bwd, qkv_bwd and K3's
-# backward alike; attention_bwd's two routes are apart. Every __global__
+# backward alike; each attention kernel's routes are apart. Every __global__
 # function of vista_tpu_torch/csrc/ belongs to one group
 # (tests/test_torch_gemm_plan.py).
 SYMBOLS = {
-    "attention": ("vk::attention_kernel<", "vk::attention_wgmma_kernel<"),
+    "attention (wgmma)": ("vk::attention_wgmma_kernel<",),
+    "attention (short, Sk <= 64)": ("vk::attention_short_kernel<",),
     "ln_linear": ("vk::ln_linear_kernel", "vk::ln_stats_kernel"),
     "linear_residual": ("vk::linear_residual_tma_kernel",),
     "gn_silu_conv3": ("vk::gn_silu_kernel", "vk::conv3_tma_kernel<1>", "vk::conv3_tma_kernel<2>"),
@@ -150,7 +157,7 @@ SYMBOLS = {
     "attention_bwd dK/dV (wgmma)": ("vk::attn_bwd_dkv_wgmma",),
     "attention_bwd dQ (wgmma)": ("vk::attn_bwd_dq_wgmma",),
     "attention_bwd prep (lse, D)": ("vk::attn_bwd_prep",),
-    "attention_bwd (mma.sync, Sk <= 64)": ("vk::attn_bwd_",),
+    "attention_bwd (short, Sk <= 64)": ("vk::attn_bwd_short_kernel<",),
     "ff_bwd_dh": ("vk::ff_bwd_dh_tma_kernel",),
     "seg_gemm (dxn of ff_bwd, qkv_bwd; K3 da)": ("vk::seg_gemm_tma_kernel",),
     "vk_wgrad (split-K dW of ff_bwd, qkv_bwd, K3)": ("vk::wgrad_tma_kernel",),
@@ -330,9 +337,7 @@ def sdpa_layout(t, heads):
 
 
 def kernel_checks():
-    from vista_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plain,
-                                               attention_bwd_plan, attention_forward,
-                                               attention_plain)
+    from vista_tpu_torch.ops.attention import attention_forward, attention_plain
     from vista_tpu_torch.ops.fused_ff import ff_bwd, ff_bwd_plain
     from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_plain,
                                             ln_linear, ln_linear_plain)
@@ -352,14 +357,16 @@ def kernel_checks():
     rows, ok = [], True
     sdpa = F.scaled_dot_product_attention
 
-    # K1: (batch rows, tokens, heads) at the main paths' shapes, both
-    # routes, the plan's first; the ds1 and 2880-token cases use a few of
-    # the 50 frames so that the plain fp32 logits fit.
+    # K1: (batch rows, tokens, heads) at the main paths' shapes, every route
+    # that takes the shape, the plan's first; the ds1 and 2880-token cases
+    # use a few of the 50 frames so that the plain fp32 logits fit.
     for b, s, h, tag in [(2, 9216, 5, "ds1 576x1024"), (8, 2304, 10, "ds2 576x1024"),
                          (50, 576, 20, "ds4 576x1024"), (50, 144, 20, "mid 576x1024"),
                          (10, 2880, 5, "ds1 320x576"), (50, 720, 10, "ds2 320x576"),
                          (50, 180, 20, "ds4 320x576"), (50, 45, 20, "mid 320x576"),
-                         (18432, 25, 5, "temporal ds1 576x1024")]:
+                         (18432, 25, 5, "temporal ds1 576x1024"),
+                         (4608, 25, 10, "temporal ds2 576x1024"),
+                         (1152, 25, 20, "temporal ds4 576x1024")]:
         q, k, v = (rnd(b, s, h * 64) for _ in range(3))
         q4, k4, v4 = (sdpa_layout(t, h) for t in (q, k, v))
         for route in attention_routes(b, s, h):
@@ -504,30 +511,7 @@ def kernel_checks():
     for b, s, h, tag in [(25, 2880, 5, "ds1"), (25, 720, 10, "ds2"), (25, 180, 20, "ds4"),
                          (25, 45, 20, "mid"), (2880, 25, 5, "temporal ds1"),
                          (720, 25, 10, "temporal ds2")]:
-        q, k, v, do = (rnd(b, s, h * 64) for _ in range(4))
-        o, lse = attention_forward(q, k, v, h, want_lse=True)
-        q4, k4, v4, do4 = (sdpa_layout(t, h) for t in (q, k, v, do))
-        ok &= fwd_lse_checks(f"{tag} 320x576 ({b},{s},{h}x64)", q, k, v, h, rows,
-                             lambda: time_ms(lambda: sdpa(q4, k4, v4)))
-        q4.requires_grad_(), k4.requires_grad_(), v4.requires_grad_()
-
-        def sdpa_fwd_bwd():
-            q4.grad = k4.grad = v4.grad = None
-            sdpa(q4, k4, v4).backward(do4)
-
-        def sdpa_bwd_ms():
-            with torch.no_grad():
-                fwd = time_ms(lambda: sdpa(q4, k4, v4))
-            return time_ms(sdpa_fwd_bwd) - fwd
-
-        route = attention_bwd_plan(b, s, s, h, s).route
-        ok &= compare("attention_bwd", f"{tag} 320x576 ({b},{s},{h}x64) {route}",
-                      lambda: attention_bwd(q, k, v, o, lse, do, h),
-                      lambda: attention_bwd_plain(q, k, v, o, lse, do, h),
-                      lambda: attention_bwd_plain(*f32(q, k, v, o, lse, do), h), rows,
-                      10 * b * h * s * s * 64, 2 * 8 * b * s * h * 64 + 4 * b * h * s,
-                      sdpa_bwd_ms)
-        del q, k, v, do, o, lse, q4, k4, v4, do4
+        ok &= attention_train_checks(rnd, f32, rows, b, s, h, f"{tag} 320x576")
     for m, c in [(72000, 320), (18000, 640), (4500, 1280)]:
         x, dy = rnd(m, c), rnd(m, c)
         lw, lb = rnd(c, std=0.1, dtype=torch.float32) + 1, rnd(c, std=0.1, dtype=torch.float32)
@@ -568,11 +552,50 @@ def kernel_checks():
 
 
 def attention_routes(b, s, h):
-    """K1's two routes, the one the plan takes first."""
-    from vista_tpu_torch.ops.attention import attention_plan
+    """The routes of K1 that take ``s`` queries and keys (the short route
+    takes at most 64), the one the plan takes first."""
+    from vista_tpu_torch.ops.attention import SHORT_ROWS, attention_plan
 
     chosen = attention_plan(b, s, s, h, s).route
-    return (chosen, "mma" if chosen == "wgmma" else "wgmma")
+    routes = ("short", "wgmma") if s <= SHORT_ROWS else ("wgmma",)
+    return (chosen,) + tuple(r for r in routes if r != chosen)
+
+
+def attention_train_checks(rnd, f32, rows, b, s, h, tag):
+    """The training path's attention at one shape: K1 with its LSE on every
+    route that takes it, then attention_bwd on the plan's route, every
+    output against the plain version; SDPA forward, and its autograd
+    backward minus forward, as the yardsticks."""
+    from vista_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plain,
+                                               attention_bwd_plan, attention_forward)
+
+    sdpa = F.scaled_dot_product_attention
+    q, k, v, do = (rnd(b, s, h * 64) for _ in range(4))
+    o, lse = attention_forward(q, k, v, h, want_lse=True)
+    q4, k4, v4, do4 = (sdpa_layout(t, h) for t in (q, k, v, do))
+    ok = fwd_lse_checks(f"{tag} ({b},{s},{h}x64)", q, k, v, h, rows,
+                        lambda: time_ms(lambda: sdpa(q4, k4, v4)))
+    q4.requires_grad_(), k4.requires_grad_(), v4.requires_grad_()
+
+    def sdpa_fwd_bwd():
+        q4.grad = k4.grad = v4.grad = None
+        sdpa(q4, k4, v4).backward(do4)
+
+    def sdpa_bwd_ms():
+        with torch.no_grad():
+            fwd = time_ms(lambda: sdpa(q4, k4, v4))
+        return time_ms(sdpa_fwd_bwd) - fwd
+
+    route = attention_bwd_plan(b, s, s, h, s).route
+    ok &= compare("attention_bwd", f"{tag} ({b},{s},{h}x64) {route}",
+                  lambda: attention_bwd(q, k, v, o, lse, do, h),
+                  lambda: attention_bwd_plain(q, k, v, o, lse, do, h),
+                  lambda: attention_bwd_plain(*f32(q, k, v, o, lse, do), h), rows,
+                  10 * b * h * s * s * 64, 2 * 8 * b * s * h * 64 + 4 * b * h * s,
+                  sdpa_bwd_ms)
+    del q, k, v, do, o, lse, q4, k4, v4, do4
+    torch.cuda.empty_cache()
+    return ok
 
 
 def fwd_lse_checks(shape, q, k, v, h, rows, library_fn):
@@ -600,22 +623,26 @@ CROSSOVER_SLACK = 1.2
 
 
 def route_crossover(kernel, sites, plan, launcher):
-    """``kernel``'s two routes timed on the device alone (``device_ms``) at
-    the sites next to its threshold: the measurement behind ``plan``.
-    ``launcher(b, s, h)`` makes the inputs of a site and returns the launch
-    of one route. Returns the rows and whether the plan's route is the
-    faster one at every site, within ``CROSSOVER_SLACK``."""
+    """``kernel``'s routes timed on the device alone (``device_ms``) at the
+    sites next to its threshold: the measurement behind ``plan``. The short
+    route takes at most 64 queries and keys, so above that the wgmma route
+    is timed alone. ``launcher(b, s, h)`` makes the inputs of a site and
+    returns the launch of one route. Returns the rows and whether the
+    plan's route is the faster one at every site, within
+    ``CROSSOVER_SLACK``."""
+    from vista_tpu_torch.ops.attention import SHORT_ROWS
+
     out, agrees = [], True
     for b, s, h, tag in sites:
         run = launcher(b, s, h)
-        ms = {route: device_ms(lambda: run(route)) for route in ("mma", "wgmma")}
+        routes = ("short", "wgmma") if s <= SHORT_ROWS else ("wgmma",)
+        ms = {route: device_ms(lambda: run(route)) for route in routes}
         chosen = plan(b, s, s, h, s).route
-        other = "mma" if chosen == "wgmma" else "wgmma"
-        fine = ms[chosen] <= CROSSOVER_SLACK * ms[other]
+        fine = ms[chosen] <= CROSSOVER_SLACK * min(ms.values())
         agrees &= fine
-        log(f"  {kernel} route crossover {tag} ({b},{s},{h}x64): mma {ms['mma']:.3f} ms, "
-            f"wgmma {ms['wgmma']:.3f} ms; the plan takes {chosen}"
-            + ("" if fine else f", more than {CROSSOVER_SLACK}x the other: DISAGREES"))
+        times = ", ".join(f"{r} {t:.3f} ms" for r, t in ms.items())
+        log(f"  {kernel} route crossover {tag} ({b},{s},{h}x64): {times}; the plan takes "
+            f"{chosen}" + ("" if fine else f", more than {CROSSOVER_SLACK}x the other: DISAGREES"))
         out.append(dict(shape=f"{tag} ({b},{s},{h}x64)", chosen=chosen, agrees=fine, **ms))
         del run
     torch.cuda.empty_cache()
@@ -624,9 +651,9 @@ def route_crossover(kernel, sites, plan, launcher):
 
 def route_crossovers(rnd):
     """Both attention kernels' crossovers: K1's at the sampling batch of 50
-    frames (the temporal attention's rows of ds4 576x1024 for t = 25),
-    attention_bwd's at the phase-2 batch of 25 (the temporal rows of ds1
-    320x576)."""
+    frames (the temporal attention's rows of ds4 and ds1 576x1024 for
+    t = 25), attention_bwd's at the phase-2 batch of 25 (the temporal rows
+    of ds1 320x576) and at the phase-1 temporal rows of ds1 576x1024."""
     from vista_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plan,
                                                attention_forward, attention_plan)
 
@@ -642,11 +669,13 @@ def route_crossovers(rnd):
     fwd_rows, fwd_agrees = route_crossover("attention", [
         (50, 45, 20, "mid 320x576"), (50, 144, 20, "mid 576x1024"),
         (50, 180, 20, "ds4 320x576"), (50, 576, 20, "ds4 576x1024"),
-        (50, 720, 10, "ds2 320x576"), (1152, 25, 20, "temporal ds4 576x1024")],
+        (50, 720, 10, "ds2 320x576"), (1152, 25, 20, "temporal ds4 576x1024"),
+        (18432, 25, 5, "temporal ds1 576x1024")],
         attention_plan, fwd)
     bwd_rows, bwd_agrees = route_crossover("attention_bwd", [
         (25, 45, 20, "mid 320x576"), (25, 144, 20, "mid 576x1024"),
-        (25, 180, 20, "ds4 320x576"), (2880, 25, 5, "temporal ds1 320x576")],
+        (25, 180, 20, "ds4 320x576"), (2880, 25, 5, "temporal ds1 320x576"),
+        (9216, 25, 5, "temporal ds1 576x1024")],
         attention_bwd_plan, bwd)
     return fwd_rows, bwd_rows, fwd_agrees and bwd_agrees
 
@@ -756,6 +785,9 @@ def phase1_kernel_checks(rnd, f32, rows):
                           2 * 2 * b * s * h * 64 + 4 * b * h * s + 8 * b * h * plan.s_q_pad)
         del q, k, v, do, o, lse, q4, k4, v4
         torch.cuda.empty_cache()
+    # the temporal attention at ds1 and ds2 (batch 1 x h w rows, t = 25)
+    for b, s, h, tag in [(9216, 25, 5, "temporal ds1"), (2304, 25, 10, "temporal ds2")]:
+        ok &= attention_train_checks(rnd, f32, rows, b, s, h, f"{tag} 576x1024")
     # the feed-forward backward at ds1, every gradient
     m, c = 230400, 320
     x, dy = rnd(m, c), rnd(m, c)
@@ -1076,10 +1108,14 @@ def _device_profile(label, fn):
         f"({100 * total / 1e6 / wall:.1f}% of wall)")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {g:18s} {us / 1e3:10.1f} ms  {100 * us / max(total, 1):5.1f}%")
+    attn = sum(us for g, us in groups.items() if g.startswith("K: attention ("))
+    if attn:
+        log(f"    {'K: attention, all routes':18s} {attn / 1e3:10.1f} ms")
     attn_bwd = sum(us for g, us in groups.items() if g.startswith("K: attention_bwd"))
     if attn_bwd:
-        # its dQ kernel runs on a second stream beside dK/dV, so the two may
-        # overlap by up to a wave of blocks: their sum can exceed their span
+        # its wgmma route's dQ kernel runs on a second stream beside dK/dV, so
+        # the two may overlap by up to a wave of blocks: their sum can exceed
+        # their span
         log(f"    {'K: attention_bwd, all routes':18s} {attn_bwd / 1e3:10.1f} ms")
     OUT.mkdir(exist_ok=True)
     (OUT / f"profile_{label}.txt").write_text(

@@ -126,11 +126,21 @@ def test_linear_residual_is_deterministic(rnd):
     assert torch.equal(linear_residual(a, w, b, res), linear_residual(a, w, b, res))
 
 
-@pytest.mark.parametrize("route", ["wgmma", "mma"])
-@pytest.mark.parametrize("b,s_q,s_k,heads,valid_k", [
-    (3, 100, 100, 2, None), (2, 1000, 1000, 5, None), (1, 2880, 2880, 1, None),
-    (3, 100, 130, 2, None), (3, 100, 130, 2, 77), (2, 300, 300, 20, None),
-    (2, 129, 200, 3, 1)])
+SPATIAL_SHAPES = [(3, 100, 100, 2, None), (2, 1000, 1000, 5, None), (1, 2880, 2880, 1, None),
+                  (3, 100, 130, 2, None), (3, 100, 130, 2, 77), (2, 300, 300, 20, None),
+                  (2, 129, 200, 3, 1)]
+# the short route: t = 25 at 5, 10 and 20 heads, 45 frames, a valid key
+# length, s_q != s_k, 1, 17, 33 and 64 frames, and 1, 7 and 18432 sequences
+# (an odd count leaves half of the last 32-frame box empty)
+SHORT_SHAPES = [(1, 25, 25, 5, None), (7, 25, 25, 10, None), (18432, 25, 25, 5, None),
+                (7, 25, 25, 20, 20), (50, 45, 45, 20, None), (7, 45, 45, 20, 40),
+                (3, 20, 30, 2, None), (9, 17, 17, 2, 9), (3, 33, 33, 1, None),
+                (2, 64, 64, 3, 64), (5, 1, 1, 2, None)]
+
+
+@pytest.mark.parametrize("route,b,s_q,s_k,heads,valid_k",
+                         [("wgmma", *s) for s in SPATIAL_SHAPES]
+                         + [("short", *s) for s in SHORT_SHAPES[:4]])
 def test_attention_routes(rnd, route, b, s_q, s_k, heads, valid_k):
     """Each of K1's routes, forced, at ragged lengths, s_q != s_k, a valid
     key length, 1 and 20 heads: the output and the LSE."""
@@ -144,10 +154,10 @@ def test_attention_routes(rnd, route, b, s_q, s_k, heads, valid_k):
     _check(attention_forward(q, k, v, heads, valid_k, route=route), ref_o)
 
 
-@pytest.mark.parametrize("route", ["wgmma", "mma"])
-def test_attention_is_deterministic(rnd, route):
+@pytest.mark.parametrize("route,b,s", [("wgmma", 2, 1000), ("short", 2000, 25)])
+def test_attention_is_deterministic(rnd, route, b, s):
     """No atomics: two launches give the same bits, with and without LSE."""
-    q, k, v = (rnd(2, 1000, 5 * 64) for _ in range(3))
+    q, k, v = (rnd(b, s, 5 * 64) for _ in range(3))
     first = attention_forward(q, k, v, 5, want_lse=True, route=route)
     second = attention_forward(q, k, v, 5, want_lse=True, route=route)
     for t, u in zip(first, second):
@@ -155,10 +165,10 @@ def test_attention_is_deterministic(rnd, route):
     assert torch.equal(first[0], attention_forward(q, k, v, 5, route=route))
 
 
-@pytest.mark.parametrize("b,s,heads,route", [(2, 576, 5, "wgmma"), (30, 25, 5, "mma")])
+@pytest.mark.parametrize("b,s,heads,route", [(2, 576, 5, "wgmma"), (30, 25, 5, "short")])
 def test_attention_packed_forward_route(rnd, b, s, heads, route):
     """attention_packed under autograd takes the wgmma forward at a spatial
-    length and the mma.sync one at t = 25, and the backward on that
+    length and the short one at t = 25, and the backward on that
     forward's LSE holds its plain version."""
     q, k, v, gy = (rnd(b, s, heads * 64) for _ in range(4))
     args = [t.requires_grad_() for t in (q, k, v)]
@@ -171,6 +181,53 @@ def test_attention_packed_forward_route(rnd, b, s, heads, route):
     ref = attention_bwd_plain(*_f32(q, k, v), o, lse, gy.float(), heads)
     for g, r in zip(got, ref):
         _check(g, r)
+
+
+def _close_abs(got, ref):
+    """Like _check, against the plain version's largest magnitude or 1e-3 if
+    that is smaller: with one key, dq and dk are 0 up to bf16 rounding."""
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max() / max(ref.float().abs().max().item(), 1e-3)
+    assert err <= TOL, float(err)
+
+
+@pytest.mark.parametrize("b,s_q,s_k,heads,valid_k", SHORT_SHAPES)
+def test_attention_short_route(rnd, b, s_q, s_k, heads, valid_k):
+    """The short route, forward without and with LSE and the fused
+    backward, against their plain versions; the backward is one launch of
+    its own kernel."""
+    q, k, v = rnd(b, s_q, heads * 64), rnd(b, s_k, heads * 64), rnd(b, s_k, heads * 64)
+    do = rnd(b, s_q, heads * 64)
+    _build.reset_counts()
+    o = attention_forward(q, k, v, heads, valid_k)
+    o2, lse = attention_forward(q, k, v, heads, valid_k, want_lse=True)
+    ref_o, ref_lse = attention_plain(*_f32(q, k, v), heads, valid_k, want_lse=True)
+    _check(o, ref_o)
+    assert torch.equal(o, o2)
+    _check(lse, ref_lse)
+    got = attention_bwd(q, k, v, o2, lse, do, heads, valid_k)
+    assert _build.LAUNCHES == {"attention": 2, "attention:short": 2, "attention_bwd": 1,
+                               "attention_bwd:short": 1}
+    ref = attention_bwd_plain(*_f32(q, k, v, o2, lse, do), heads, valid_k)
+    for g, r in zip(got, ref):
+        _close_abs(g, r)
+    if valid_k is not None and valid_k < s_k:
+        # keys at or past the valid length get no gradient
+        assert not got[1][:, valid_k:].any() and not got[2][:, valid_k:].any()
+
+
+@pytest.mark.parametrize("s_q,s_k", [(65, 65), (25, 100), (100, 25)])
+def test_short_route_refuses_long_sequences(rnd, s_q, s_k):
+    """Forced onto more than 64 queries or keys, the short route raises
+    before any launch."""
+    q, k, v = rnd(2, s_q, 128), rnd(2, s_k, 128), rnd(2, s_k, 128)
+    o, lse = attention_forward(q, k, v, 2, want_lse=True, route="wgmma")
+    _build.reset_counts()
+    with pytest.raises(ValueError):
+        attention_forward(q, k, v, 2, route="short")
+    with pytest.raises(ValueError):
+        attention_bwd(q, k, v, o, lse, q, 2, route="short")
+    assert not _build.LAUNCHES
 
 
 @pytest.mark.parametrize("shape", [(300, 320), (50, 25, 640), (7, 1280)])
@@ -195,15 +252,16 @@ def test_attention_bwd(rnd, b, s_q, s_k, heads, valid_k):
     _check(lse, ref_lse)
     _build.reset_counts()
     got = attention_bwd(q, k, v, o, lse, do, heads, valid_k)
-    route = "mma" if s_k <= SMALL_KEYS else "wgmma"
+    route = "short" if s_k <= SMALL_KEYS else "wgmma"
     assert _build.LAUNCHES[f"attention_bwd:{route}"] == 1
     ref = attention_bwd_plain(*_f32(q, k, v, o, lse, do), heads, valid_k)
     for g, r in zip(got, ref):
         _check(g, r)
 
 
-@pytest.mark.parametrize("route", ["wgmma", "mma"])
-@pytest.mark.parametrize("b,s_q,s_k,heads,valid_k", [(3, 100, 130, 2, 77), (40, 25, 25, 5, None)])
+@pytest.mark.parametrize("route,b,s_q,s_k,heads,valid_k", [
+    ("wgmma", 3, 100, 130, 2, 77), ("wgmma", 40, 25, 25, 5, None),
+    ("short", 40, 25, 25, 5, None), ("short", 7, 45, 45, 20, 40)])
 def test_attention_bwd_forced_route(rnd, route, b, s_q, s_k, heads, valid_k):
     """``route=`` forces either backward route at a spatial and a temporal
     shape, each within the tolerance of the plain version."""
@@ -218,9 +276,10 @@ def test_attention_bwd_forced_route(rnd, route, b, s_q, s_k, heads, valid_k):
         _check(g, r)
 
 
-@pytest.mark.parametrize("b,s,heads", [(2, 1000, 5), (40, 25, 5)])
+@pytest.mark.parametrize("b,s,heads", [(2, 1000, 5), (40, 25, 5), (2880, 25, 5), (7, 45, 20)])
 def test_attention_bwd_is_deterministic(rnd, b, s, heads):
-    """No atomics in the sums: two launches give the same bits."""
+    """No atomics in the sums: two launches give the same bits (the short
+    route's single launch at t = 25 and 45 frames too)."""
     q, k, v, do = (rnd(b, s, heads * 64) for _ in range(4))
     o, lse = attention_forward(q, k, v, heads, want_lse=True)
     first = attention_bwd(q, k, v, o, lse, do, heads)
@@ -229,11 +288,11 @@ def test_attention_bwd_is_deterministic(rnd, b, s, heads):
         assert torch.equal(t, u)
 
 
-@pytest.mark.parametrize("b,s,heads,route", [(2, 576, 5, "wgmma"), (30, 25, 5, "mma")])
+@pytest.mark.parametrize("b,s,heads,route", [(2, 576, 5, "wgmma"), (30, 25, 5, "short")])
 def test_attention_packed_backward_route(rnd, b, s, heads, route):
     """A backward through attention_packed under autograd (the engine's
-    thread) takes the wgmma kernels at a spatial length and the mma.sync
-    ones at t = 25."""
+    thread) takes the wgmma kernels at a spatial length and the short
+    route's single kernel at t = 25."""
     q, k, v, gy = (rnd(b, s, heads * 64) for _ in range(4))
     args = [t.requires_grad_() for t in (q, k, v)]
     _build.reset_counts()

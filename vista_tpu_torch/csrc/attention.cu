@@ -2,9 +2,9 @@
 // q (B, Sq, H*64), k and v (B, Sk, H*64), out (B, Sq, H*64), bf16, with an
 // optional valid-key length (keys at or past it are masked out). The
 // softmax scale times log2(e) is applied to the fp32 scores inside the
-// kernel, and the online softmax (running max m and sum l in fp32) works in
-// the base-2 domain. P is rounded to bf16 for the P.V product, as in the TPU
-// kernels. Nothing of size S^2 reaches device memory, and no sum uses
+// kernel, and the softmax (max m and sum l in fp32; online over key tiles on
+// the wgmma route) works in the base-2 domain. P is rounded to bf16 for the
+// P.V product, as in the TPU kernels. Nothing of size S^2 reaches device memory, and no sum uses
 // atomics: two launches give the same bits.
 //
 // With a non-null ``lse`` (the training forward, the JAX want_lse path) it
@@ -54,175 +54,149 @@
 //     Q tile (its products are done) and stored by TMA; rows past Sq are
 //     dropped. LSE = m ln 2 + log l for rows < Sq.
 //
-// mma.sync route (attention_kernel, at most the threshold's keys: the
-// temporal t = 25 attention and the 45-key mid site at 320x576, where the
-// measured crossover favours it). Replaces the attention core of vista_tpu/ops/fused_temporal_attn.py
+// short route (attention_short_kernel, at most the threshold's queries and
+// keys: the temporal t = 25 attention and the 45-key mid site at 320x576).
+// Replaces the attention core of vista_tpu/ops/fused_temporal_attn.py
 // _kernel (t = 25 frame tokens, taken unpadded here) and _tiny_kernel at
-// those sites. One block of 4 warps per (64 queries, batch row, head); each
-// warp owns 16 query rows. K/V tiles of 64 keys stream through shared
-// memory; the scores stay in registers. For t = 25 the block is mostly
-// padding, and still beats the library call there.
-#include "attention_wgmma.cuh"
+// those sites. The layout, the persistent walk and the ring are
+// csrc/attention_short.cuh's. Per unit, each consumer warp:
+//   - S = Q K^T for its 16 query rows and the SB keys of its sequence
+//     (mma.sync on ldmatrix fragments of the swizzled Q and K boxes);
+//   - the whole-row softmax in base 2: keys at or past kv_len masked, the
+//     row max over the quad by __shfl_xor, P = exp2(S scale log2 e - m),
+//     l = sum P in fp32 (no online rescaling: the row is whole);
+//   - O = P V with P rounded to bf16 and V read transposed by ldmatrix;
+//     the stage is released here, so the producer refills it under the
+//     epilogue;
+//   - O / l rounded once to bf16 into the warp's 16-row staging box and
+//     stored by TMA (rows past Sq and sequences past B dropped), and for
+//     the training instance LSE = m ln 2 + log l, fp32, for rows < Sq.
+#include "attention_short.cuh"
 
 namespace vk {
 
-constexpr int AQ = 64, AK = 64, AD = 64;
-constexpr int AS = AD + 8;  // padded smem row stride (bf16)
+constexpr int AD = 64;  // head width
 
-template <bool LSE>
-__global__ void __launch_bounds__(128)
-attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Sk, int H, int kv_len,
-                 float scale_log2) {
-  __shared__ __align__(16) bf16 Qs[AQ * AS];
-  __shared__ __align__(16) bf16 Ks[AK * AS];
-  __shared__ __align__(16) bf16 Vs[AK * AS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  // blockIdx.x walks the q tiles of one batch row, then the next row, so
-  // neighbouring blocks share K/V in L2; the batch has no 65535 grid limit.
-  const int q_tiles = (Sq + AQ - 1) / AQ;
-  const int b = blockIdx.x / q_tiles, q0 = (blockIdx.x % q_tiles) * AQ;
-  const int h = blockIdx.y;
-  const int HD = H * AD;
-
-  for (int c = tid; c < AQ * 8; c += 128) {
-    const int row = c >> 3, ch = (c & 7) * 8, qi = q0 + row;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (qi < Sq)
-      val = *reinterpret_cast<const uint4*>(
-          q + ((size_t)b * Sq + qi) * HD + h * AD + ch);
-    *reinterpret_cast<uint4*>(&Qs[row * AS + ch]) = val;
+// Shared memory (1024-aligned for the swizzle): the ring of (Q, K, V)
+// stages, a staging box per consumer warp, the barriers (full and empty per
+// stage).
+template <int SB, bool LSE>
+__global__ void __launch_bounds__(SH_THREADS, SH_BLOCKS_PER_SM)
+attention_short_kernel(__grid_constant__ const CUtensorMap tm_q,
+                       __grid_constant__ const CUtensorMap tm_k,
+                       __grid_constant__ const CUtensorMap tm_v,
+                       __grid_constant__ const CUtensorMap tm_o, float* __restrict__ lse,
+                       int B, int Sq, int H, int kv_len, float scale_log2) {
+  constexpr int NSEQ = SH_ROWS / SB, NT = SB / 8;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  Ring<SH_FWD_STAGES> ring;
+  ring.base = (raw + 1023) & ~1023u;
+  ring.bytes = SH_FWD_STAGE;
+  const uint32_t staging = ring.base + SH_FWD_STAGES * SH_FWD_STAGE;
+  ring.full0 = staging + SH_WARPS * SH_OUT_BOX;
+  ring.empty0 = ring.full0 + 8 * SH_FWD_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SH_FWD_STAGES; ++s) {
+      mbar_init(ring.full0 + 8 * s, 1);
+      mbar_init(ring.empty0 + 8 * s, SH_WARPS);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
-  uint32_t qf[4][4];
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const bf16* p = Qs + (warp * 16 + g) * AS + ks * 16 + t * 2;
-    qf[ks][0] = ld32(p);
-    qf[ks][1] = ld32(p + 8 * AS);
-    qf[ks][2] = ld32(p + 8);
-    qf[ks][3] = ld32(p + 8 * AS + 8);
-  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int units = (B + NSEQ - 1) / NSEQ * H;
 
-  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
-  float oacc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
-
-  for (int k0 = 0; k0 < kv_len; k0 += AK) {
-    __syncthreads();  // the previous K/V tile is no longer read
-    for (int c = tid; c < AK * 8; c += 128) {
-      const int row = c >> 3, ch = (c & 7) * 8, ki = k0 + row;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (ki < kv_len) {
-        const size_t off = ((size_t)b * Sk + ki) * HD + h * AD + ch;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
+  if (warp == SH_WARPS) {  // the producer: one thread keeps the ring full
+    if (lane == 0) {
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int h = u % H, b0 = u / H * NSEQ;
+        mbar_wait(ring.empty(), ring.phase ^ 1);
+        mbar_arrive_expect_tx(ring.full(), SH_FWD_STAGE);
+        tma_load_3d(ring.tile(), &tm_q, ring.full(), h * AD, 0, b0);
+        tma_load_3d(ring.tile() + SH_BOX, &tm_k, ring.full(), h * AD, 0, b0);
+        tma_load_3d(ring.tile() + 2 * SH_BOX, &tm_v, ring.full(), h * AD, 0, b0);
+        ring.advance();
       }
-      *reinterpret_cast<uint4*>(&Ks[row * AS + ch]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[row * AS + ch]) = vv;
     }
-    __syncthreads();
+    return;
+  }
+  const int g = lane >> 2, t = lane & 3;
+  const int R0 = 16 * warp, j = R0 / SB, r0 = R0 % SB, J0 = j * SB;
+  const uint32_t out = staging + warp * SH_OUT_BOX;
+  uint8_t* out_ptr = smem_raw + (out - raw);
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int h = u % H, b = u / H * NSEQ + j;
+    mbar_wait(ring.full(), ring.phase);
+    const uint32_t qb = ring.tile(), kb = qb + SH_BOX, vb = kb + SH_BOX;
+    uint32_t qf[4][4];
+    sh_a_frags(qb, R0, qf);
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    sh_scores<SB>(s, qf, kb, J0);
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    float s[8][4];
+    // rows g (e = 0, 1) and g + 8 (e = 2, 3); keys 8 nt + 2 t + (e & 1)
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bf16* p = Ks + (j * 8 + g) * AS + ks * 16 + t * 2;
-        const uint32_t bfr[2] = {ld32(p), ld32(p + 8)};
-        mma_16816(s[j], qf[ks], bfr);
-      }
-
-    // Online softmax; rows g (e = 0, 1) and g + 8 (e = 2, 3).
-    float mx[2] = {m_i[0], m_i[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + t * 2 + (e & 1);
-        s[j][e] = key < kv_len ? s[j][e] * scale_log2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        const int key = 8 * nt + 2 * t + (e & 1);
+        s[nt][e] = key < kv_len ? s[nt][e] * scale_log2 : -INFINITY;
+        m[e >> 1] = fmaxf(m[e >> 1], s[nt][e]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // key 0 is live: the max is finite
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = ex2(s[nt][e] - m[e >> 1]);
+        l[e >> 1] += s[nt][e];
       }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
-    float alpha[2], rsum[2] = {0.f, 0.f};
+    uint32_t pf[NT / 2][4];
+    sh_pack<NT / 2>(s, pf);
+    float o[8][4];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      alpha[r] = exp2f(m_i[r] - mx[r]);
-      m_i[r] = mx[r];
-    }
+    for (int dt = 0; dt < 8; ++dt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - mx[e >> 1]);
-        rsum[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + rsum[r];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      oacc[j][0] *= alpha[0];
-      oacc[j][1] *= alpha[0];
-      oacc[j][2] *= alpha[1];
-      oacc[j][3] *= alpha[1];
-    }
+      for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+    sh_accumulate<SB>(o, pf, vb, J0);  // O = P V
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ring.empty());  // this warp has read Q, K and V
+    ring.advance();
 
-    // O += P V: the score accumulators of key tiles 2kk, 2kk+1 are the A
-    // fragment of the k16 step kk.
+    if (LSE && t == 0 && b < B) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const bf16* vp = Vs + (kk * 16 + t * 2) * AS + g;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bf16* p = vp + j * 8;
-        const uint32_t bfr[2] = {pack_raw(p[0], p[AS]),
-                                 pack_raw(p[8 * AS], p[9 * AS])};
-        mma_16816(oacc[j], pa, bfr);
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + g + 8 * r;
+        if (row < Sq) lse[((size_t)b * H + h) * Sq + row] = m[r] * 0.6931471805599453f + logf(l[r]);
       }
     }
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    if (lane == 0) bulk_wait_read<0>();  // the previous unit's store has read the box
+    __syncwarp();
+    sh_store_rows(out_ptr, 0, o, inv);
+    fence_async_smem();
+    __syncwarp();
+    if (lane == 0) {
+      tma_store_3d(&tm_o, out, h * AD, r0, b);
+      bulk_commit();
+    }
   }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-    const int qi = q0 + warp * 16 + g + r * 8;
-    if (LSE && t == 0 && qi < Sq)
-      lse[((size_t)b * H + h) * Sq + qi] =
-          m_i[r] * 0.6931471805599453f + logf(l_i[r]);
-    l_i[r] = 1.f / l_i[r];
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + warp * 16 + g + r * 8;
-    if (qi >= Sq) continue;
-    bf16* orow = o + ((size_t)b * Sq + qi) * HD + h * AD + t * 2;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + j * 8) = pack_bf16(
-          oacc[j][2 * r] * l_i[r], oacc[j][2 * r + 1] * l_i[r]);
-  }
+  if (lane == 0) bulk_wait_read<0>();
 }
-
 
 // ---- the wgmma route
 
@@ -459,18 +433,41 @@ attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
 // q (B, Sq, H*64), k and v (B, Sk, H*64), out like q; bf16, contiguous.
 // lse: fp32 (B, H, Sq) or null. kv_len = number of keys attended (<= Sk).
 // scale_log2 = scale * log2(e). The launch is the plan's (ops/attention.py
-// attention_plan); each entry checks it against its kernel's decode. The
-// mma.sync route, a (grid_x, grid_y) grid of 128 threads:
-extern "C" int vk_attention(const void* q, const void* k, const void* v,
-                            void* out, void* lse, int B, int Sq, int Sk, int H,
-                            int kv_len, float scale_log2, int grid_x, int grid_y,
-                            void* stream) {
-  if (grid_x != B * ((Sq + vk::AQ - 1) / vk::AQ) || grid_y != H)
+// attention_plan); each entry checks it against its kernel's walk and
+// shared memory (every pointer 16-byte aligned). The short route (Sq, Sk
+// <= 64), a persistent grid of `blocks` blocks of SH_THREADS walking the
+// units (group of 64 / SB sequences, head), with `smem` bytes of dynamic
+// shared memory:
+extern "C" int vk_attention_short(const void* q, const void* k, const void* v, void* out,
+                                  void* lse, int B, int Sq, int Sk, int H, int kv_len,
+                                  float scale_log2, int blocks, int smem, void* stream) {
+  using namespace vk;
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Sq > SH_ROWS || Sk > SH_ROWS || kv_len < 1 ||
+      kv_len > Sk || smem != SH_FWD_SMEM ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)lse) % 16)
     return (int)cudaErrorInvalidValue;
-  auto kernel = lse ? vk::attention_kernel<true> : vk::attention_kernel<false>;
-  kernel<<<dim3(grid_x, grid_y), 128, 0, (cudaStream_t)stream>>>(
-      (const vk::bf16*)q, (const vk::bf16*)k, (const vk::bf16*)v,
-      (vk::bf16*)out, (float*)lse, Sq, Sk, H, kv_len, scale_log2);
+  const int sb = sh_frames(Sq > Sk ? Sq : Sk), nseq = SH_ROWS / sb;
+  const long units = (long)((B + nseq - 1) / nseq) * H;
+  if (blocks < 1 || blocks > units) return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!short_map(&tm_q, q, Sq, B, H, sb, nseq) || !short_map(&tm_k, k, Sk, B, H, sb, nseq) ||
+      !short_map(&tm_v, v, Sk, B, H, sb, nseq) || !short_map(&tm_o, out, Sq, B, H, 16, 1))
+    return (int)cudaErrorInvalidValue;
+  const int which = (sb == 64) * 2 + (lse != nullptr);
+  void (*const kernels[4])(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, float*, int,
+                           int, int, int, float) = {
+      attention_short_kernel<32, false>, attention_short_kernel<32, true>,
+      attention_short_kernel<64, false>, attention_short_kernel<64, true>};
+  // more than 48 KB of dynamic shared memory: allowed once per instance
+  static bool opted_in[4] = {false, false, false, false};
+  if (!opted_in[which]) {
+    if (cudaError_t e = cudaFuncSetAttribute(kernels[which],
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+      return (int)e;
+    opted_in[which] = true;
+  }
+  kernels[which]<<<blocks, SH_THREADS, smem, (cudaStream_t)stream>>>(
+      tm_q, tm_k, tm_v, tm_o, (float*)lse, B, Sq, H, kv_len, scale_log2);
   return (int)cudaGetLastError();
 }
 

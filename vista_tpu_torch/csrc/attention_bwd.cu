@@ -4,13 +4,14 @@
 // temporal t = 25 attention needs no padding; their dk and dv are zero.
 // P and dS are rounded to bf16 for their products, as the TPU kernels do;
 // accumulation is fp32. Nothing of size S^2 reaches device memory, and no
-// sum uses atomics: two launches give the same bits. Both routes (chosen by
-// ops/attention.py attention_bwd_plan) start with attn_bwd_prep_kernel:
-// (lse * log2 e, D = rowsum(dO * O)) per (row, head) into fp32
-// (B, H, Sq_pad, 2); pad rows read (+inf, 0), so a padded query has P = 0.
+// sum uses atomics: two launches give the same bits. Two routes, chosen by
+// ops/attention.py attention_bwd_plan.
 //
 // wgmma route (Sk > 64: the spatial attention, ds1 .. mid at 576x1024,
-// ds1 .. ds4 at 320x576; Sq_pad = Sq rounded up to 128). Replaces
+// ds1 .. ds4 at 320x576). It starts with attn_bwd_prep_kernel: (lse * log2 e,
+// D = rowsum(dO * O)) per (row, head) into fp32 (B, H, Sq_pad, 2), Sq_pad =
+// Sq rounded up to 128; pad rows read (+inf, 0), so a padded query has
+// P = 0. Replaces
 // vista_tpu/ops/flash_attention.py _bwd_dq_kernel and _bwd_dkv_kernel
 // (_flash_bwd_packed, s >= 2048) and the spatial half of
 // vista_tpu/ops/tiny_attention.py _tiny_bwd_kernel (s <= 1024), with the
@@ -47,113 +48,32 @@
 // ring's Q/dO (K/V) tiles come from L2, shared by the blocks of one
 // (batch row, head), which run next to each other.
 //
-// mma.sync route (Sk <= 64: the temporal t = 25 attention and the 45-key
-// mid site at 320x576; Sq_pad = Sq), the port's first design, which beats
-// the library call and the wgmma route there. Replaces tiny_attention.py
-// _tiny_bwd_kernel at t = 25 and the softmax backward of
-// vista_tpu/ops/fused_temporal_attn.py _bwd_kernel. FlashAttention-2 style:
-//   - dK/dV: a block of 4 warps per (64 keys, batch row, head), each warp
-//     owning 16 keys; K and V stay in registers as MMA fragments while the
-//     Q, dO tiles of 64 queries stream through shared memory. Per tile:
-//     S^T = K Q^T, P^T = exp2(S^T * scale*log2e - lse*log2e), dV += P^T dO,
-//     dP^T = V dO^T, dS^T = P^T (dP^T - D), dK += dS^T Q;
-//   - dQ: a block per (64 queries, batch row, head), K and V tiles
-//     streaming: S = Q K^T, P, dP = dO V^T, dS = P (dP - D), dQ += dS K.
-#include "attention_wgmma.cuh"
+// short route (Sq, Sk <= 64: the temporal t = 25 attention and the 45-key
+// mid site at 320x576): attn_bwd_short_kernel, one launch, no pre-pass, no
+// atomics. Replaces tiny_attention.py _tiny_bwd_kernel at those sites and
+// the softmax backward of vista_tpu/ops/fused_temporal_attn.py _bwd_kernel.
+// The layout, the persistent walk and the ring are csrc/attention_short.cuh's;
+// a stage holds one unit's Q, K, V, O and dO boxes, so each is read from HBM
+// once and dQ, dK, dV are written once: the bytes of the bound. A unit's
+// sums never leave the block. Per unit:
+//   - phase A, each warp on its 16 query rows: D = rowsum(dO O) in fp32 from
+//     the O and dO boxes; S = Q K^T and dP = dO V^T; P = exp2(S scale log2 e
+//     - lse log2 e) (lse read ahead, one unit early, into registers; +inf on
+//     rows past Sq, so a pad row has P = 0; keys at or past kv_len give
+//     P = 0, so their dS, dK and dV are 0); dS = P (dP - D); dQ = dS K with
+//     dS rounded to bf16; P and dS in bf16 into shared memory;
+//   - a barrier of the consumer warps; phase B, each warp on its 16 keys:
+//     dV = P^T dO and dK = dS^T Q, P^T and dS^T read transposed by ldmatrix;
+//   - dQ scale into the warp's O rows (read by no other warp), dK scale and
+//     dV into its K and V rows (no longer read once phase A is over), stored
+//     by three TMA stores of 16 rows; the stage is released once they have
+//     read it, and a second barrier lets the next unit overwrite P and dS.
+#include "attention_short.cuh"
 
 namespace vk {
 
-constexpr int BQ = 64, BKV = 64, HD = 64;
-constexpr int PS = HD + 8;  // padded smem row stride (bf16)
+constexpr int HD = 64;
 constexpr float LOG2E = 1.4426950408889634f;
-
-// Tile loader: 64 rows of 64 bf16 from row ``r0`` of a packed (rows, H*64)
-// slab, head ``h``; rows at or past ``n`` are zero.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
-                                          int n, int HDall, int h) {
-  for (int c = threadIdx.x; c < 64 * 8; c += 128) {
-    const int row = c >> 3, ch = (c & 7) * 8, r = r0 + row;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)r * HDall + h * HD + ch);
-    *reinterpret_cast<uint4*>(&dst[row * PS + ch]) = val;
-  }
-}
-
-// A fragments of this warp's 16 rows of a 64x64 smem tile (k = head dim).
-__device__ __forceinline__ void a_frags(const bf16* tile, uint32_t f[4][4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const bf16* p = tile + (warp * 16 + g) * PS + ks * 16 + t * 2;
-    f[ks][0] = ld32(p);
-    f[ks][1] = ld32(p + 8 * PS);
-    f[ks][2] = ld32(p + 8);
-    f[ks][3] = ld32(p + 8 * PS + 8);
-  }
-}
-
-// acc[j] (16 x 64 over 8 n-tiles) += A(16 x 64, fragments) * T^T where the
-// smem tile T holds the 64 n-rows with k = head dim along each row.
-__device__ __forceinline__ void mma_rows(float acc[8][4], const uint32_t a[4][4],
-                                         const bf16* tile) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* p = tile + (j * 8 + g) * PS + ks * 16 + t * 2;
-      const uint32_t b[2] = {ld32(p), ld32(p + 8)};
-      mma_16816(acc[j], a[ks], b);
-    }
-}
-
-// acc[j] (16 x 64 head dims) += P(16 x 64, fp32 accumulators) * T where the
-// smem tile T is (64 k-rows, 64 head dims): P becomes the bf16 A fragments.
-__device__ __forceinline__ void mma_cols(float acc[8][4], const float p[8][4],
-                                         const bf16* tile) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-    const bf16* vp = tile + (kk * 16 + t * 2) * PS + g;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* q = vp + j * 8;
-      const uint32_t b[2] = {pack_raw(q[0], q[PS]), pack_raw(q[8 * PS], q[9 * PS])};
-      mma_16816(acc[j], pa, b);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero8(float a[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
-}
-
-// Write this warp's 16 rows x 64 of acc * mul as bf16 (rows >= n skipped).
-__device__ __forceinline__ void store_rows(bf16* dst, const float acc[8][4],
-                                           int r0, int n, int HDall, int h,
-                                           float mul) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + warp * 16 + g + r * 8;
-    if (row >= n) continue;
-    bf16* p = dst + (size_t)row * HDall + h * HD + t * 2;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(p + j * 8) =
-          pack_bf16(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
-  }
-}
 
 // rows[(b H + h) Sq_pad + q] = (lse[b, h, q] log2 e, sum_d dO O) for q < Sq
 // and (+inf, 0) past it. Eight threads per (b, h, q), 16 bytes of O and dO
@@ -186,127 +106,171 @@ attn_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                         : make_float2(INFINITY, 0.f);
 }
 
-__global__ void __launch_bounds__(128)
-attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const float2* __restrict__ rows,
-                    const bf16* __restrict__ dout, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int Sq, int Sk, int H, int kv_len,
-                    float scale, float scale_log2) {
-  __shared__ __align__(16) bf16 Qs[BQ * PS];
-  __shared__ __align__(16) bf16 Ds[BQ * PS];  // the dO tile
-  __shared__ float s_lse[BQ], s_d[BQ];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int k_tiles = (Sk + BKV - 1) / BKV;
-  const int b = blockIdx.x / k_tiles, k0 = (blockIdx.x % k_tiles) * BKV;
-  const int h = blockIdx.y;
-  const int HDall = H * HD;
-
-  // K and V fragments of this warp's 16 keys, staged through the Q/dO tiles.
-  uint32_t kf[4][4], vf[4][4];
-  load_tile(Qs, k + (size_t)b * Sk * HDall, k0, kv_len, HDall, h);
-  load_tile(Ds, v + (size_t)b * Sk * HDall, k0, kv_len, HDall, h);
-  __syncthreads();
-  a_frags(Qs, kf);
-  a_frags(Ds, vf);
-
-  float dka[8][4], dva[8][4];
-  zero8(dka);
-  zero8(dva);
-  const float2* rows_b = rows + ((size_t)b * H + h) * Sq;
-  for (int q0 = 0; q0 < Sq; q0 += BQ) {
-    __syncthreads();  // the previous tiles (or the K/V staging) are read
-    load_tile(Qs, q + (size_t)b * Sq * HDall, q0, Sq, HDall, h);
-    load_tile(Ds, dout + (size_t)b * Sq * HDall, q0, Sq, HDall, h);
-    for (int i = threadIdx.x; i < BQ; i += 128) {
-      const float2 r = q0 + i < Sq ? rows_b[q0 + i] : make_float2(INFINITY, 0.f);
-      s_lse[i] = r.x;
-      s_d[i] = r.y;
+// The short route. Shared memory (1024-aligned for the swizzle): the ring
+// of (Q, K, V, O, dO) stages, P and dS (bf16, SB + 8 values a row), the
+// barriers (full and empty per stage).
+template <int SB>
+__global__ void __launch_bounds__(SH_THREADS, SH_BLOCKS_PER_SM)
+attn_bwd_short_kernel(__grid_constant__ const CUtensorMap tm_q,
+                      __grid_constant__ const CUtensorMap tm_k,
+                      __grid_constant__ const CUtensorMap tm_v,
+                      __grid_constant__ const CUtensorMap tm_o,
+                      __grid_constant__ const CUtensorMap tm_do,
+                      __grid_constant__ const CUtensorMap tm_dq,
+                      __grid_constant__ const CUtensorMap tm_dk,
+                      __grid_constant__ const CUtensorMap tm_dv, const float* __restrict__ lse,
+                      int B, int Sq, int H, int kv_len, float scale, float scale_log2) {
+  constexpr int NSEQ = SH_ROWS / SB, NT = SB / 8, STRIDE = (SB + 8) * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  Ring<SH_BWD_STAGES> ring;
+  ring.base = (raw + 1023) & ~1023u;
+  ring.bytes = SH_BWD_STAGE;
+  const uint32_t p_s = ring.base + SH_BWD_STAGES * SH_BWD_STAGE, ds_s = p_s + SH_BWD_PDS / 2;
+  ring.full0 = p_s + SH_BWD_PDS;
+  ring.empty0 = ring.full0 + 8 * SH_BWD_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SH_BWD_STAGES; ++s) {
+      mbar_init(ring.full0 + 8 * s, 1);
+      mbar_init(ring.empty0 + 8 * s, SH_WARPS);
     }
-    __syncthreads();
-
-    // P^T (this warp's 16 keys x 64 queries) from S^T = K Q^T.
-    float p[8][4];
-    zero8(p);
-    mma_rows(p, kf, Qs);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + warp * 16 + g + (e >> 1) * 8;
-        const int qc = j * 8 + t * 2 + (e & 1);
-        p[j][e] = key < kv_len ? exp2f(p[j][e] * scale_log2 - s_lse[qc]) : 0.f;
-      }
-    mma_cols(dva, p, Ds);  // dV += P^T dO
-
-    float dp[8][4];
-    zero8(dp);
-    mma_rows(dp, vf, Ds);  // dP^T = V dO^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dp[j][e] = p[j][e] * (dp[j][e] - s_d[j * 8 + t * 2 + (e & 1)]);
-    mma_cols(dka, dp, Qs);  // dK += dS^T Q
+    mbar_fence_init();
   }
-  store_rows(dk + (size_t)b * Sk * HDall, dka, k0, Sk, HDall, h, scale);
-  store_rows(dv + (size_t)b * Sk * HDall, dva, k0, Sk, HDall, h, 1.f);
-}
-
-__global__ void __launch_bounds__(128)
-attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const float2* __restrict__ rows,
-                   const bf16* __restrict__ dout, bf16* __restrict__ dq,
-                   int Sq, int Sk, int H, int kv_len, float scale,
-                   float scale_log2) {
-  __shared__ __align__(16) bf16 Ks[BKV * PS];
-  __shared__ __align__(16) bf16 Vs[BKV * PS];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q_tiles = (Sq + BQ - 1) / BQ;
-  const int b = blockIdx.x / q_tiles, q0 = (blockIdx.x % q_tiles) * BQ;
-  const int h = blockIdx.y;
-  const int HDall = H * HD;
-
-  uint32_t qf[4][4], df[4][4];
-  load_tile(Ks, q + (size_t)b * Sq * HDall, q0, Sq, HDall, h);
-  load_tile(Vs, dout + (size_t)b * Sq * HDall, q0, Sq, HDall, h);
   __syncthreads();
-  a_frags(Ks, qf);
-  a_frags(Vs, df);
-  float l2[2], dd[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + warp * 16 + g + r * 8;
-    const float2 rw = qi < Sq ? rows[((size_t)b * H + h) * Sq + qi] : make_float2(INFINITY, 0.f);
-    l2[r] = rw.x;
-    dd[r] = rw.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int units = (B + NSEQ - 1) / NSEQ * H;
+
+  if (warp == SH_WARPS) {  // the producer: one thread keeps the ring full
+    if (lane == 0) {
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int h = u % H, b0 = u / H * NSEQ;
+        const uint32_t dst = ring.tile(), bar = ring.full();
+        mbar_wait(ring.empty(), ring.phase ^ 1);
+        mbar_arrive_expect_tx(bar, SH_BWD_STAGE);
+        tma_load_3d(dst, &tm_q, bar, h * HD, 0, b0);
+        tma_load_3d(dst + SH_BOX, &tm_k, bar, h * HD, 0, b0);
+        tma_load_3d(dst + 2 * SH_BOX, &tm_v, bar, h * HD, 0, b0);
+        tma_load_3d(dst + 3 * SH_BOX, &tm_o, bar, h * HD, 0, b0);
+        tma_load_3d(dst + 4 * SH_BOX, &tm_do, bar, h * HD, 0, b0);
+        ring.advance();
+      }
+    }
+    return;
   }
-
-  float dqa[8][4];
-  zero8(dqa);
-  for (int k0 = 0; k0 < kv_len; k0 += BKV) {
-    __syncthreads();
-    load_tile(Ks, k + (size_t)b * Sk * HDall, k0, kv_len, HDall, h);
-    load_tile(Vs, v + (size_t)b * Sk * HDall, k0, kv_len, HDall, h);
-    __syncthreads();
-
-    float p[8][4], dp[8][4];
-    zero8(p);
-    zero8(dp);
-    mma_rows(p, qf, Ks);   // S = Q K^T
-    mma_rows(dp, df, Vs);  // dP = dO V^T
+  const int g = lane >> 2, t = lane & 3;
+  const int R0 = 16 * warp, j = R0 / SB, r0 = R0 % SB, J0 = j * SB;
+  // lse log2 e of this thread's rows r0 + g, r0 + g + 8 of unit u's sequence
+  auto lse_rows = [&](int u, float (&out)[2]) {
+    const int h = u % H, b = u / H * NSEQ + j;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g + 8 * r;
+      out[r] = b < B && row < Sq ? lse[((size_t)b * H + h) * Sq + row] * LOG2E : INFINITY;
+    }
+  };
+  float l2[2], l2_next[2];
+  if (blockIdx.x < units) lse_rows(blockIdx.x, l2_next);
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int h = u % H, b = u / H * NSEQ + j;
+    l2[0] = l2_next[0];
+    l2[1] = l2_next[1];
+    if (u + (int)gridDim.x < units) lse_rows(u + gridDim.x, l2_next);
+    mbar_wait(ring.full(), ring.phase);
+    const uint32_t qb = ring.tile(), kb = qb + SH_BOX, vb = kb + SH_BOX, ob = vb + SH_BOX,
+                   dob = ob + SH_BOX;
+    uint8_t* const o_ptr = smem_raw + (ob - raw);
+
+    // phase A: query rows R0 .. R0 + 15. D of row R0 + i from lanes 2i, 2i + 1.
+    float dsum = 0.f;
+    {
+      const uint8_t* op = o_ptr;
+      const uint8_t* dp = smem_raw + (dob - raw);
+      const int row = R0 + (lane >> 1);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int chunk = 4 * (lane & 1) + c;
+        float a[8], d[8];
+        unpack8(*reinterpret_cast<const uint4*>(op + sw128(row, chunk)), a);
+        unpack8(*reinterpret_cast<const uint4*>(dp + sw128(row, chunk)), d);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dsum = fmaf(a[e], d[e], dsum);
+      }
+      dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+    }
+    const float D[2] = {__shfl_sync(0xffffffffu, dsum, 2 * g),
+                        __shfl_sync(0xffffffffu, dsum, 2 * g + 16)};
+    uint32_t qf[4][4], df[4][4];
+    sh_a_frags(qb, R0, qf);
+    sh_a_frags(dob, R0, df);
+    float s[NT][4], dpa[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dpa[nt][e] = 0.f;
+    sh_scores<SB>(s, qf, kb, J0);    // S = Q K^T
+    sh_scores<SB>(dpa, df, vb, J0);  // dP = dO V^T
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + t * 2 + (e & 1);
-        const float pe = key < kv_len ? exp2f(p[j][e] * scale_log2 - l2[e >> 1]) : 0.f;
-        p[j][e] = pe * (dp[j][e] - dd[e >> 1]);
+        const int key = 8 * nt + 2 * t + (e & 1);
+        const float p = key < kv_len ? ex2(fmaf(s[nt][e], scale_log2, -l2[e >> 1])) : 0.f;
+        s[nt][e] = p;
+        dpa[nt][e] = p * (dpa[nt][e] - D[e >> 1]);  // dS
       }
-    mma_cols(dqa, p, Ks);  // dQ += dS K
+    uint32_t pf[NT / 2][4], dsf[NT / 2][4];
+    sh_pack<NT / 2>(s, pf);
+    sh_pack<NT / 2>(dpa, dsf);
+    float dq[8][4];
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[dt][e] = 0.f;
+    sh_accumulate<SB>(dq, dsf, kb, J0);  // dQ = dS K
+    {
+      // P and dS rows R0 + g (+ 8), keys 16 kk + 2 t (+ 8): fragment word e
+      // of k-step kk is row g + 8 (e & 1), keys + 8 (e >> 1)
+      uint8_t* const pp = smem_raw + (p_s - raw);
+      uint8_t* const dsp = smem_raw + (ds_s - raw);
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int off = (R0 + g + 8 * (e & 1)) * STRIDE + (16 * kk + 8 * (e >> 1) + 2 * t) * 2;
+          *reinterpret_cast<uint32_t*>(pp + off) = pf[kk][e];
+          *reinterpret_cast<uint32_t*>(dsp + off) = dsf[kk][e];
+        }
+    }
+    bar_named(1, SH_WARPS * 32);  // P and dS whole; K, V and O no longer read
+
+    // phase B: keys r0 .. r0 + 15 of sequence j (box rows R0 ..)
+    uint32_t pt[NT / 2][4], dst[NT / 2][4];
+    sh_at_frags<SB>(p_s, STRIDE, J0, r0, pt);
+    sh_at_frags<SB>(ds_s, STRIDE, J0, r0, dst);
+    float dv[8][4], dk[8][4];
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv[dt][e] = dk[dt][e] = 0.f;
+    sh_accumulate<SB>(dv, pt, dob, J0);  // dV = P^T dO
+    sh_accumulate<SB>(dk, dst, qb, J0);  // dK = dS^T Q
+    const float by_scale[2] = {scale, scale}, by_one[2] = {1.f, 1.f};
+    sh_store_rows(o_ptr, R0, dq, by_scale);
+    sh_store_rows(smem_raw + (kb - raw), R0, dk, by_scale);
+    sh_store_rows(smem_raw + (vb - raw), R0, dv, by_one);
+    fence_async_smem();
+    __syncwarp();
+    if (lane == 0) {
+      tma_store_3d(&tm_dq, ob + R0 * 128, h * HD, r0, b);
+      tma_store_3d(&tm_dk, kb + R0 * 128, h * HD, r0, b);
+      tma_store_3d(&tm_dv, vb + R0 * 128, h * HD, r0, b);
+      bulk_commit();
+      bulk_wait_read<0>();
+      mbar_arrive(ring.empty());  // the stores have read the stage
+    }
+    ring.advance();
+    bar_named(1, SH_WARPS * 32);  // every warp has read P and dS
   }
-  store_rows(dq + (size_t)b * Sq * HDall, dqa, q0, Sq, HDall, h, scale);
 }
 
 
@@ -605,9 +569,8 @@ attn_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
 
 }  // namespace vk
 
-// Both routes: the pre-pass from o, dout (B, Sq, H*64) bf16 and K1's lse
-// (B, H, Sq) fp32 into rows, fp32 (B, H, Sq_pad, 2) scratch: Sq_pad = Sq
-// for the mma.sync route, Sq rounded up to 128 for the wgmma one.
+// The wgmma route's pre-pass from o, dout (B, Sq, H*64) bf16 and K1's lse
+// (B, H, Sq) fp32 into rows, fp32 (B, H, Sq_pad, 2) scratch (Sq_pad >= Sq).
 extern "C" int vk_attention_bwd_prep(const void* o, const void* dout, const void* lse,
                                      void* rows, int B, int Sq, int Sq_pad, int H,
                                      void* stream) {
@@ -619,27 +582,44 @@ extern "C" int vk_attention_bwd_prep(const void* o, const void* dout, const void
   return (int)cudaGetLastError();
 }
 
-// Then dq (like q), dk, dv (like k) from q, dout (B, Sq, H*64), k, v
-// (B, Sk, H*64) bf16 and the rows; 1 <= kv_len <= Sk. Both entries take the
-// same arguments. The mma.sync route (Sq_pad = Sq):
-extern "C" int vk_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
-                                const void* rows, void* dq, void* dk, void* dv, int B, int Sq,
-                                int Sk, int H, int kv_len, int Sq_pad, float scale,
-                                void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || kv_len < 1 || kv_len > Sk || Sq_pad != Sq)
+// The short route (Sq, Sk <= 64), in one launch: dq (like q), dk, dv (like
+// k) from q, o, dout (B, Sq, H*64), k, v (B, Sk, H*64) bf16 and K1's lse
+// (B, H, Sq) fp32; 1 <= kv_len <= Sk; a persistent grid of `blocks` blocks
+// of SH_THREADS with `smem` bytes of dynamic shared memory, as
+// ops/attention.py attention_bwd_plan computes them (every pointer 16-byte
+// aligned):
+extern "C" int vk_attention_bwd_short(const void* q, const void* k, const void* v,
+                                      const void* o, const void* dout, const void* lse,
+                                      void* dq, void* dk, void* dv, int B, int Sq, int Sk,
+                                      int H, int kv_len, float scale, int blocks, int smem,
+                                      void* stream) {
+  using namespace vk;
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Sq > SH_ROWS || Sk > SH_ROWS || kv_len < 1 ||
+      kv_len > Sk || smem != SH_BWD_SMEM ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout |
+       (uintptr_t)lse | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 16)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const float scale_log2 = scale * vk::LOG2E;
-  dim3 gkv(B * ((Sk + vk::BKV - 1) / vk::BKV), H);
-  vk::attn_bwd_dkv_kernel<<<gkv, 128, 0, st>>>(
-      (const vk::bf16*)q, (const vk::bf16*)k, (const vk::bf16*)v, (const float2*)rows,
-      (const vk::bf16*)dout, (vk::bf16*)dk, (vk::bf16*)dv, Sq, Sk, H, kv_len, scale, scale_log2);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  dim3 gq(B * ((Sq + vk::BQ - 1) / vk::BQ), H);
-  vk::attn_bwd_dq_kernel<<<gq, 128, 0, st>>>(
-      (const vk::bf16*)q, (const vk::bf16*)k, (const vk::bf16*)v, (const float2*)rows,
-      (const vk::bf16*)dout, (vk::bf16*)dq, Sq, Sk, H, kv_len, scale, scale_log2);
+  const int sb = sh_frames(Sq > Sk ? Sq : Sk), nseq = SH_ROWS / sb;
+  const long units = (long)((B + nseq - 1) / nseq) * H;
+  if (blocks < 1 || blocks > units) return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o, tm_do, tm_dq, tm_dk, tm_dv;
+  if (!short_map(&tm_q, q, Sq, B, H, sb, nseq) || !short_map(&tm_k, k, Sk, B, H, sb, nseq) ||
+      !short_map(&tm_v, v, Sk, B, H, sb, nseq) || !short_map(&tm_o, o, Sq, B, H, sb, nseq) ||
+      !short_map(&tm_do, dout, Sq, B, H, sb, nseq) || !short_map(&tm_dq, dq, Sq, B, H, 16, 1) ||
+      !short_map(&tm_dk, dk, Sk, B, H, 16, 1) || !short_map(&tm_dv, dv, Sk, B, H, 16, 1))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = sb == 64 ? attn_bwd_short_kernel<64> : attn_bwd_short_kernel<32>;
+  // more than 48 KB of dynamic shared memory: allowed once per instance
+  static bool opted_in[2] = {false, false};
+  if (!opted_in[sb == 64]) {
+    if (cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              smem))
+      return (int)e;
+    opted_in[sb == 64] = true;
+  }
+  kernel<<<blocks, SH_THREADS, smem, (cudaStream_t)stream>>>(
+      tm_q, tm_k, tm_v, tm_o, tm_do, tm_dq, tm_dk, tm_dv, (const float*)lse, B, Sq, H, kv_len,
+      scale, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -656,8 +636,9 @@ static cudaError_t side_stream(cudaStream_t* out) {
   return cudaSuccess;
 }
 
-// The wgmma route (Sq_pad = Sq rounded up to 128; every pointer 16-byte
-// aligned):
+// Then the wgmma route: dq (like q), dk, dv (like k) from q, dout (B, Sq,
+// H*64), k, v (B, Sk, H*64) bf16 and the rows; 1 <= kv_len <= Sk; Sq_pad =
+// Sq rounded up to 128; every pointer 16-byte aligned:
 extern "C" int vk_attention_bwd_wgmma(const void* q, const void* k, const void* v,
                                       const void* dout, const void* rows, void* dq, void* dk,
                                       void* dv, int B, int Sq, int Sk, int H, int kv_len,

@@ -41,10 +41,10 @@ SITES: collections.Counter = collections.Counter()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
-    "vk_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "vk_attention_short": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "vk_attention_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "vk_attention_bwd_prep": [_P] * 4 + [_I] * 4 + [_P],
-    "vk_attention_bwd": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "vk_attention_bwd_short": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P],
     "vk_attention_bwd_wgmma": [_P] * 8 + [_I] * 6 + [_F, _P],
     "vk_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
     "vk_conv3": [_P] * 7 + [_I] * 7 + [_P],

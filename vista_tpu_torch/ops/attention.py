@@ -8,21 +8,24 @@ the temporal attention over t = 25 frames. On CUDA tensors it launches the
 hand-written kernel K1 (``csrc/attention.cu``) on the route that
 :func:`attention_plan` picks: more than ``FWD_SMALL_KEYS`` keys (the
 spatial sites) take the TMA + ``wgmma`` flash forward, the temporal t = 25
-attention (and any site at or under the threshold) the ``mma.sync`` kernel.
-On CPU tensors it runs :func:`attention_plain`. The kernels take t = 25
-unpadded; ``valid_k`` masks keys at or past it for callers that do pad.
+attention and the 45-key mid site at 320x576 (at most 64 queries and keys)
+the short route, a persistent TMA-fed kernel that holds whole sequences
+(``csrc/attention_short.cuh``). On CPU tensors it runs
+:func:`attention_plain`. The kernels take t = 25 unpadded; ``valid_k``
+masks keys at or past it for callers that do pad.
 
 Backward (training): when an input requires grad, the forward also writes
 the fp32 log-sum-exp of each query row, ``(B, heads, S_q)`` (the JAX
-``want_lse`` path), and the backward runs ``csrc/attention_bwd.cu``: a
-pre-pass for ``D = rowsum(dO * O)``, a dK/dV kernel looping over query
-tiles and a dQ kernel looping over key tiles, both recomputing P from the
-saved LSE. :func:`attention_bwd_plan` picks the route: the spatial sites
-(more than 64 keys) take the TMA + ``wgmma`` kernels (ports of
-``_bwd_dq_kernel``, ``_bwd_dkv_kernel`` and the spatial ``_tiny_bwd_kernel``);
-the temporal t = 25 attention and the 45-key mid site at 320x576 keep the
-``mma.sync`` kernels, which beat the library call there. On CPU tensors
-:func:`attention_bwd_plain` computes the same in fp32.
+``want_lse`` path), and the backward runs ``csrc/attention_bwd.cu``, both
+routes recomputing P from the saved LSE. :func:`attention_bwd_plan` picks
+the route: the spatial sites (more than 64 keys) take the TMA + ``wgmma``
+kernels (ports of ``_bwd_dq_kernel``, ``_bwd_dkv_kernel`` and the spatial
+``_tiny_bwd_kernel``): a pre-pass for ``D = rowsum(dO * O)``, a dK/dV
+kernel looping over query tiles and a dQ kernel looping over key tiles. The
+temporal t = 25 attention and the 45-key mid site at 320x576 take the short
+route: one launch that reads each of q, k, v, o, dO and the LSE once per
+(sequence, head) and writes dq, dk, dv once, every sum inside one block. On
+CPU tensors :func:`attention_bwd_plain` computes the same in fp32.
 """
 
 from __future__ import annotations
@@ -39,41 +42,101 @@ from vista_tpu_torch.ops import _build
 HEAD_DIM = 64  # the only head width K1 is built for (the UNet's)
 _LOG2E = 1.4426950408889634
 
-# Both kernels' routes share their shapes: at most a threshold of keys take
-# the mma.sync kernels (64-row tiles, 128 threads, static shared memory);
-# more take the wgmma kernels (blocks of 128 rows, two consumer warpgroups
-# and a producer warpgroup, a ring of stages of 128 rows). K1's threshold is
-# FWD_SMALL_KEYS and its ring FWD_STAGES deep (csrc/attention.cu);
-# attention_bwd's SMALL_KEYS and WGMMA_STAGES (csrc/attention_bwd.cu). Both
-# thresholds are measured crossovers on an H100 (chip_smoke.py
-# route_crossovers): the mma.sync kernels win at t = 25
-# and at the 45-key mid site of 320x576, the wgmma ones from 144 keys up.
+# Both kernels' routes share their shapes. At most a threshold of queries
+# and keys take the short route (csrc/attention_short.cuh): a persistent
+# grid of SHORT_BLOCKS_PER_SM blocks per SM of SHORT_THREADS threads (four
+# consumer warps and a producer warp), walking units of one head of
+# SHORT_ROWS // frames whole sequences (a 64-row TMA box per tensor), head
+# fastest; frames is 32 up to 32 queries and keys, else 64. The forward's
+# ring is SHORT_FWD_STAGES (Q, K, V) stages deep, the backward's
+# SHORT_BWD_STAGES (Q, K, V, O, dO). More take the wgmma kernels (blocks of
+# 128 rows, two consumer warpgroups and a producer warpgroup, a ring of
+# stages of 128 rows). K1's threshold is FWD_SMALL_KEYS and its wgmma ring
+# FWD_STAGES deep (csrc/attention.cu); attention_bwd's SMALL_KEYS and
+# WGMMA_STAGES (csrc/attention_bwd.cu). The short kernels take no more than
+# 64 of either; below that the measured route crossover on an H100
+# (chip_smoke.py route_crossovers) holds each threshold.
 FWD_SMALL_KEYS = 64
 FWD_STAGES = 4
 SMALL_KEYS = 64
-MMA_TILE, MMA_THREADS = 64, 128
+SHORT_ROWS, SHORT_THREADS, SHORT_BLOCKS_PER_SM = 64, 160, 2
+SHORT_FWD_STAGES, SHORT_BWD_STAGES = 4, 2
 WGMMA_TILE, WGMMA_STAGES, WGMMA_THREADS = 128, 3, 384
 _BOX = WGMMA_TILE * HEAD_DIM * 2  # one 128 x 64 bf16 tile, bytes
+_SHORT_BOX = SHORT_ROWS * HEAD_DIM * 2  # one 64-row box, bytes
 _BARRIERS = 8 * (1 + 2 * WGMMA_STAGES)
+H100_SMS = 132
 
 
-def _decode(route, heads, tile, tiles, i, y):
-    """(batch row, head, first row) of block ``i`` of a grid over ``tiles``
-    row tiles per (batch row, head): ``(b tiles, heads)`` on the mma
-    route, flat with the tile fastest, then the head, on the wgmma one."""
-    if route == "mma":
-        return i // tiles, y, i % tiles * tile
+@functools.lru_cache(maxsize=8)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode(heads, tile, tiles, i):
+    """(batch row, head, first row) of wgmma block ``i`` of a flat grid over
+    ``tiles`` row tiles per (batch row, head), the tile fastest, then the
+    head."""
     bh = i // tiles
     return bh // heads, bh % heads, i % tiles * tile
 
 
 @dataclasses.dataclass(frozen=True)
+class ShortPlan:
+    """The short route's launch, forward or backward: ``grid[0]`` persistent
+    blocks of ``threads`` walk the ``units``, each one head of ``seqs``
+    whole sequences of ``frames`` rows (one TMA box per tensor), the head
+    fastest; block ``i`` takes units ``i, i + grid[0], ...``. ``stages``
+    is the ring's depth and ``smem`` the dynamic shared memory in bytes."""
+
+    route: str
+    b: int
+    s_q: int
+    s_k: int
+    heads: int
+    kv_len: int
+    frames: int
+    seqs: int
+    threads: int
+    stages: int
+    grid: tuple
+    smem: int
+
+    @property
+    def units(self) -> int:
+        return -(-self.b // self.seqs) * self.heads
+
+    def unit(self, u):
+        """(first sequence, head) of unit ``u``, as the kernel decodes it."""
+        return u // self.heads * self.seqs, u % self.heads
+
+    def walk(self, i: int) -> range:
+        """The units that block ``i`` takes, in order."""
+        return range(i, self.units, self.grid[0])
+
+
+def _short_plan(shape, stages, smem, sms):
+    b, s_q, s_k, heads, _ = shape
+    if max(s_q, s_k) > SHORT_ROWS:
+        raise ValueError(f"the short route takes at most {SHORT_ROWS} queries and keys: "
+                         f"got {s_q} and {s_k}")
+    frames = 32 if max(s_q, s_k) <= 32 else 64
+    seqs = SHORT_ROWS // frames
+    units = -(-b // seqs) * heads
+    return ShortPlan("short", *shape, frames, seqs, SHORT_THREADS, stages,
+                     (min(units, SHORT_BLOCKS_PER_SM * sms),), smem)
+
+
+def _short_route(s_q, s_k, threshold):
+    return s_k <= threshold and s_q <= SHORT_ROWS
+
+
+@dataclasses.dataclass(frozen=True)
 class FwdPlan:
-    """What :func:`attention_forward` launches for one shape: ``route``
-    (``"wgmma"`` or ``"mma"``), the row tile of a block (queries per block
-    and keys per step), its threads, the grid (``(x, y)`` on the mma route,
-    flat on the wgmma one) and the dynamic shared memory in bytes (0 on the
-    mma route, whose shared memory is static)."""
+    """What :func:`attention_forward` launches on the wgmma route for one
+    shape: the row tile of a block (queries per block and keys per step),
+    its threads, the flat grid and the dynamic shared memory in bytes."""
 
     route: str
     b: int
@@ -86,26 +149,32 @@ class FwdPlan:
     grid: tuple
     smem: int
 
-    def block(self, i: int, y: int = 0):
+    def block(self, i: int):
         """(batch row, head, first query) of block ``i``, as the kernel
         decodes it."""
-        return _decode(self.route, self.heads, self.tile, -(-self.s_q // self.tile), i, y)
+        return _decode(self.heads, self.tile, -(-self.s_q // self.tile), i)
 
 
 @functools.lru_cache(maxsize=256)
 def attention_plan(b: int, s_q: int, s_k: int, heads: int, kv_len: int,
-                   route: Optional[str] = None) -> FwdPlan:
-    """The route, tile, grid and shared memory that K1's forward launches at
-    one shape (the kernels' entries only check them), computed here so that
-    the CPU tests check them; cached, since a model repeats a few shapes.
-    ``route`` forces a route (for measuring the crossover); by default more
-    than ``FWD_SMALL_KEYS`` keys take the wgmma kernel."""
+                   route: Optional[str] = None, sms: int = H100_SMS):
+    """The route and launch that K1's forward takes at one shape (the
+    kernels' entries only check them), computed here so that the CPU tests
+    check them; cached, since a model repeats a few shapes. ``route`` forces
+    a route (for measuring the crossover); by default at most
+    ``FWD_SMALL_KEYS`` keys (and at most 64 queries) take the short route
+    (a :class:`ShortPlan` for ``sms`` SMs), more the wgmma kernel (a
+    :class:`FwdPlan`)."""
     if min(b, s_q, s_k, heads) < 1 or not 1 <= kv_len <= s_k:
         raise ValueError(f"attention_plan: bad shape {(b, s_q, s_k, heads, kv_len)}")
-    route = route or ("mma" if s_k <= FWD_SMALL_KEYS else "wgmma")
+    route = route or ("short" if _short_route(s_q, s_k, FWD_SMALL_KEYS) else "wgmma")
     shape = (b, s_q, s_k, heads, kv_len)
-    if route == "mma":
-        return FwdPlan(route, *shape, MMA_TILE, MMA_THREADS, (b * -(-s_q // MMA_TILE), heads), 0)
+    if route == "short":
+        # 1024 for the swizzle alignment, the ring of Q, K, V boxes, a
+        # 16-row staging box per consumer warp, the barriers
+        smem = (1024 + SHORT_FWD_STAGES * 3 * _SHORT_BOX + 4 * 16 * 128
+                + 16 * SHORT_FWD_STAGES)
+        return _short_plan(shape, SHORT_FWD_STAGES, smem, sms)
     if route != "wgmma":
         raise ValueError(f"attention_plan: unknown route {route!r}")
     t = WGMMA_TILE
@@ -117,13 +186,12 @@ def attention_plan(b: int, s_q: int, s_k: int, heads: int, kv_len: int,
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """What :func:`attention_bwd` launches for one shape. ``route`` is
-    ``"wgmma"`` or ``"mma"``. Both start with the pre-pass, 8 threads per
-    (batch row, head, query) in ``prep_blocks`` blocks of 256, writing the
-    fp32 (lse log2 e, D) pairs ``(b, heads, s_q_pad, 2)``; the grids are the
-    kernels' block counts (``(x, y)`` for the mma route, flat for the wgmma
-    one) and ``smem`` their dynamic shared memory in bytes (``{}`` for the
-    mma route, whose shared memory is static)."""
+    """What :func:`attention_bwd` launches on the wgmma route for one shape:
+    first the pre-pass, 8 threads per (batch row, head, query) in
+    ``prep_blocks`` blocks of 256, writing the fp32 (lse log2 e, D) pairs
+    ``(b, heads, s_q_pad, 2)``; then the dK/dV and dQ kernels, flat grids of
+    ``threads`` threads, with ``smem`` their dynamic shared memory in
+    bytes."""
 
     route: str
     b: int
@@ -142,33 +210,35 @@ class BwdPlan:
     def prep_blocks(self) -> int:
         return -(-self.b * self.heads * self.s_q_pad * 8 // 256)
 
-    def dkv_block(self, i: int, y: int = 0):
-        """(batch row, head, first key) of dK/dV block ``i`` (``y`` the
-        grid's second index on the mma route), as the kernel decodes it."""
-        return self._decode(i, y, -(-self.s_k // self.tile))
+    def dkv_block(self, i: int):
+        """(batch row, head, first key) of dK/dV block ``i``, as the kernel
+        decodes it."""
+        return _decode(self.heads, self.tile, -(-self.s_k // self.tile), i)
 
-    def dq_block(self, i: int, y: int = 0):
+    def dq_block(self, i: int):
         """(batch row, head, first query) of dQ block ``i``."""
-        return self._decode(i, y, -(-self.s_q // self.tile))
-
-    def _decode(self, i, y, tiles):
-        return _decode(self.route, self.heads, self.tile, tiles, i, y)
+        return _decode(self.heads, self.tile, -(-self.s_q // self.tile), i)
 
 
+@functools.lru_cache(maxsize=256)
 def attention_bwd_plan(b: int, s_q: int, s_k: int, heads: int, kv_len: int,
-                       route: Optional[str] = None) -> BwdPlan:
-    """The route, tiles, grids and shared memory of :func:`attention_bwd` at
-    one shape, computed here so that the CPU tests check them. ``route``
-    forces a route (for measuring the crossover); by default more than
-    ``SMALL_KEYS`` keys take the wgmma kernels."""
+                       route: Optional[str] = None, sms: int = H100_SMS):
+    """The route and launch of :func:`attention_bwd` at one shape, computed
+    here so that the CPU tests check them. ``route`` forces a route (for
+    measuring the crossover); by default at most ``SMALL_KEYS`` keys (and at
+    most 64 queries) take the short route (a :class:`ShortPlan` for ``sms``
+    SMs: one launch, no pre-pass), more the wgmma kernels (a
+    :class:`BwdPlan`)."""
     if min(b, s_q, s_k, heads) < 1 or not 1 <= kv_len <= s_k:
         raise ValueError(f"attention_bwd_plan: bad shape {(b, s_q, s_k, heads, kv_len)}")
-    route = route or ("mma" if s_k <= SMALL_KEYS else "wgmma")
+    route = route or ("short" if _short_route(s_q, s_k, SMALL_KEYS) else "wgmma")
     shape = (b, s_q, s_k, heads, kv_len)
-    if route == "mma":
-        t = MMA_TILE
-        return BwdPlan(route, *shape, t, MMA_THREADS, s_q, (b * -(-s_k // t), heads),
-                       (b * -(-s_q // t), heads), {})
+    if route == "short":
+        # 1024 for the swizzle alignment, the ring of Q, K, V, O, dO boxes,
+        # P and dS (bf16, 64 rows of 64 + 8 values each), the barriers
+        smem = (1024 + SHORT_BWD_STAGES * 5 * _SHORT_BOX + 2 * SHORT_ROWS * 72 * 2
+                + 16 * SHORT_BWD_STAGES)
+        return _short_plan(shape, SHORT_BWD_STAGES, smem, sms)
     if route != "wgmma":
         raise ValueError(f"attention_bwd_plan: unknown route {route!r}")
     t = WGMMA_TILE
@@ -251,28 +321,29 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       route: Optional[str] = None):
     """K1 on CUDA tensors (with the LSE output when ``want_lse``), on the
     route of :func:`attention_plan` (``route`` forces one, for measurements
-    and the card tests); the plain version on CPU tensors. Not
-    differentiable: see :func:`attention_packed`."""
+    and the card tests; forcing the short route on more than 64 queries or
+    keys raises); the plain version on CPU tensors. Not differentiable: see
+    :func:`attention_packed`."""
     if _build.on_cpu(q, k, v):
         return attention_plain(q, k, v, heads, valid_k, want_lse)
     _check_qkv(q, k, v, heads)
     b, s_q, _ = q.shape
-    plan = attention_plan(b, s_q, k.shape[1], heads, _kv_len(k.shape[1], valid_k), route)
+    plan = attention_plan(b, s_q, k.shape[1], heads, _kv_len(k.shape[1], valid_k), route,
+                          sm_count(q.device.index or 0))
     out = torch.empty_like(q)
     lse = torch.empty(b, heads, s_q, dtype=torch.float32, device=q.device) if want_lse else None
-    # the mma route's grid is (x, y), the wgmma route's its block count and
-    # its dynamic shared memory
-    launch = plan.grid if plan.route == "mma" else (plan.grid[0], plan.smem)
-    _build.launch("vk_attention" if plan.route == "mma" else "vk_attention_wgmma",
+    _build.launch("vk_attention_short" if plan.route == "short" else "vk_attention_wgmma",
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(lse),
-                  b, s_q, plan.s_k, heads, plan.kv_len, (HEAD_DIM ** -0.5) * _LOG2E, *launch)
+                  b, s_q, plan.s_k, heads, plan.kv_len, (HEAD_DIM ** -0.5) * _LOG2E,
+                  plan.grid[0], plan.smem)
     _build.count("attention", site, plan.route)
     return (out, lse) if want_lse else out
 
 
 def attention_bwd_prep(o, lse, do, plan: BwdPlan):
-    """The pre-pass alone: ``(lse log2 e, rowsum(dO * O))`` per query row and
-    head, fp32 ``(b, heads, plan.s_q_pad, 2)``, pad rows ``(+inf, 0)``."""
+    """The wgmma route's pre-pass alone: ``(lse log2 e, rowsum(dO * O))``
+    per query row and head, fp32 ``(b, heads, plan.s_q_pad, 2)``, pad rows
+    ``(+inf, 0)``."""
     if _build.on_cpu(o, lse, do):
         return attention_bwd_prep_plain(o, lse, do, plan)
     rows = torch.empty(plan.b, plan.heads, plan.s_q_pad, 2, dtype=torch.float32,
@@ -297,11 +368,11 @@ def attention_bwd(q, k, v, o, lse, do, heads: int, valid_k: Optional[int] = None
                   site: str = "spatial", route: Optional[str] = None):
     """dq, dk, dv: ``csrc/attention_bwd.cu`` on CUDA tensors, the plain
     version on CPU tensors. The route is :func:`attention_bwd_plan`'s
-    (``route`` forces one, for measurements and the card tests): up to
+    (``route`` forces one, for measurements and the card tests; forcing the
+    short route on more than 64 queries or keys raises): up to
     ``SMALL_KEYS`` keys (the temporal t = 25 attention, the 45-key mid site
-    at 320x576) the mma.sync kernels, more keys the wgmma kernels; the
-    mma.sync ones are the faster below that line on an H100 (PERF.md §6,
-    "route crossover")."""
+    at 320x576) the short route's single launch, more keys the pre-pass and
+    the wgmma kernels (PERF.md §6, "route crossover")."""
     if _build.on_cpu(q, k, v, do):
         return attention_bwd_plain(q, k, v, o, lse, do, heads, valid_k)
     _check_qkv(q, k, v, heads)
@@ -309,13 +380,20 @@ def attention_bwd(q, k, v, o, lse, do, heads: int, valid_k: Optional[int] = None
     _build.check(o, "o", torch.bfloat16, (b, s_q, hd))
     _build.check(do, "do", torch.bfloat16, (b, s_q, hd))
     _build.check(lse, "lse", torch.float32, (b, heads, s_q))
-    plan = attention_bwd_plan(b, s_q, k.shape[1], heads, _kv_len(k.shape[1], valid_k), route)
-    rows = attention_bwd_prep(o, lse, do, plan)
+    plan = attention_bwd_plan(b, s_q, k.shape[1], heads, _kv_len(k.shape[1], valid_k), route,
+                              sm_count(q.device.index or 0))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    entry = "vk_attention_bwd" if plan.route == "mma" else "vk_attention_bwd_wgmma"
-    _build.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                  rows.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), plan.b,
-                  plan.s_q, plan.s_k, plan.heads, plan.kv_len, plan.s_q_pad, HEAD_DIM ** -0.5)
+    if plan.route == "short":
+        _build.launch("vk_attention_bwd_short", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), b, s_q, plan.s_k, heads, plan.kv_len,
+                      HEAD_DIM ** -0.5, plan.grid[0], plan.smem)
+    else:
+        rows = attention_bwd_prep(o, lse, do, plan)
+        _build.launch("vk_attention_bwd_wgmma", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      do.data_ptr(), rows.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), b, s_q, plan.s_k, heads, plan.kv_len, plan.s_q_pad,
+                      HEAD_DIM ** -0.5)
     _build.count("attention_bwd", site, plan.route)
     return dq, dk, dv
 
