@@ -93,8 +93,15 @@ KERNELS = {
         replaces="vista_tpu/ops/temporal_conv.py:357 (_gn_conv3_kernel, its GroupNorm affine "
                  "+ SiLU of each tap)"),
     "layer_norm": dict(
-        route="cuda", source="vista_tpu_torch/csrc/layer_norm.cu",
+        route="cuda", source="vista_tpu_torch/csrc/layer_norm.cu (layer_norm_kernel)",
         replaces="vista_tpu/ops/norms.py:140 (_ln_kernel)"),
+    "ln_bwd": dict(
+        route="cuda", source="vista_tpu_torch/csrc/layer_norm.cu (ln_bwd_kernel)",
+        replaces="vista_tpu/ops/fused_qkv.py:224 (_qkv_bwd_kernel, its LayerNorm backward); "
+                 "vista_tpu/ops/fused_ff.py:307 (_ff_bwd_kernel, its LayerNorm backward); "
+                 "vista_tpu/ops/fused_ff.py:434 (_ff_bwd_wide_kernel, its LayerNorm backward); "
+                 "vista_tpu/ops/norms.py:103 (layer_norm's backward, an XLA recompute: the "
+                 "LoRA norm1 sites)"),
     "attention_bwd": dict(
         route="cuda", source="vista_tpu_torch/csrc/attention_bwd.cu with "
                              "csrc/attention_short.cuh",
@@ -105,9 +112,9 @@ KERNELS = {
                  "vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel's softmax backward: "
                  "short route)"),
     "ff_bwd": dict(
-        route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu (ff_bwd_dh, vk_ln_bwd, vk_wgrad) "
+        route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu (ff_bwd_dh, vk_wgrad) "
                              "with csrc/qkv_bwd.cu (vk_seg_gemm), csrc/gemm_tma.cuh and "
-                             "csrc/layer_norm.cu",
+                             "csrc/layer_norm.cu (vk_layer_norm, vk_ln_bwd)",
         replaces="vista_tpu/ops/fused_ff.py:307 (_ff_bwd_kernel); "
                  "vista_tpu/ops/fused_ff.py:434 (_ff_bwd_wide_kernel)"),
     "ff_bwd_dh": dict(
@@ -121,8 +128,8 @@ KERNELS = {
         replaces="vista_tpu/ops/temporal_conv.py:155 (_conv3_kernel)"),
     "qkv_bwd": dict(
         route="cuda", source="vista_tpu_torch/csrc/qkv_bwd.cu (vk_seg_gemm) with "
-                             "csrc/ff_bwd.cu (vk_ln_bwd, vk_wgrad, vk_sum_splits), "
-                             "csrc/gemm_tma.cuh and csrc/layer_norm.cu",
+                             "csrc/ff_bwd.cu (vk_wgrad, vk_sum_splits), csrc/gemm_tma.cuh "
+                             "and csrc/layer_norm.cu (vk_layer_norm, vk_ln_bwd)",
         replaces="vista_tpu/ops/fused_qkv.py:224 (_qkv_bwd_kernel); "
                  "vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, LN + q/k/v backward)"),
     "linear_residual_bwd": dict(
@@ -134,7 +141,7 @@ KERNELS = {
 }
 SAMPLE_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3", "gn_silu")
 TRAIN_KERNELS = ("attention", "ln_linear", "linear_residual", "gn_silu_conv3", "gn_silu",
-                 "layer_norm", "attention_bwd", "ff_bwd", "ff_bwd_dh", "conv3")
+                 "layer_norm", "ln_bwd", "attention_bwd", "ff_bwd", "ff_bwd_dh", "conv3")
 PHASE1_KERNELS = TRAIN_KERNELS + ("qkv_bwd", "linear_residual_bwd")
 # both routes of K1 run on every path and both of attention_bwd on each
 # training path: wgmma at the spatial sites, short at the temporal ones
@@ -143,9 +150,9 @@ ATTENTION_BWD_ROUTES = ("attention_bwd:wgmma", "attention_bwd:short")
 # the demangled names of each group's device functions, for the profiles
 # (the first group whose prefix matches takes a kernel); vk_wgrad, seg_gemm,
 # the LN backward and the split-K reductions serve ff_bwd, qkv_bwd and K3's
-# backward alike; each attention kernel's routes are apart. Every __global__
-# function of vista_tpu_torch/csrc/ belongs to one group
-# (tests/test_torch_gemm_plan.py).
+# backward alike (ln_bwd also the LoRA norm1 sites); each attention
+# kernel's routes are apart. Every __global__ function of
+# vista_tpu_torch/csrc/ belongs to one group (tests/test_torch_gemm_plan.py).
 SYMBOLS = {
     "attention (wgmma)": ("vk::attention_wgmma_kernel<",),
     "attention (short, Sk <= 64)": ("vk::attention_short_kernel<",),
@@ -161,8 +168,9 @@ SYMBOLS = {
     "ff_bwd_dh": ("vk::ff_bwd_dh_tma_kernel",),
     "seg_gemm (dxn of ff_bwd, qkv_bwd; K3 da)": ("vk::seg_gemm_tma_kernel",),
     "vk_wgrad (split-K dW of ff_bwd, qkv_bwd, K3)": ("vk::wgrad_tma_kernel",),
-    "ln_bwd + col sums + split sums": ("vk::ln_bwd_kernel", "vk::col_sum_kernel",
-                                       "vk::sum_splits_kernel"),
+    "ln_bwd": ("vk::ln_bwd_kernel",),
+    "col_sum": ("vk::col_sum_kernel",),
+    "sum_splits": ("vk::sum_splits_kernel",),
 }
 
 
@@ -204,6 +212,13 @@ def build():
         log("  ptxas: " + line)
     OUT.mkdir(exist_ok=True)
     (OUT / "build_log.txt").write_text(_build.build_log)
+    from vista_tpu_torch.ops.norms import LN_BLOCKS_PER_SM, ln_occupancy
+
+    blocks = ln_occupancy()
+    log("  LayerNorm kernels, blocks an SM: " + ", ".join(f"{k} {v}" for k, v in blocks.items()))
+    if min(blocks.values()) < LN_BLOCKS_PER_SM:
+        raise SystemExit(f"a LayerNorm kernel fits fewer than the plan's {LN_BLOCKS_PER_SM} "
+                         "blocks an SM")
 
 
 def ptxas_summary(build_log):
@@ -341,7 +356,6 @@ def kernel_checks():
     from vista_tpu_torch.ops.fused_ff import ff_bwd, ff_bwd_plain
     from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_plain,
                                             ln_linear, ln_linear_plain)
-    from vista_tpu_torch.ops.norms import layer_norm_kernel, layer_norm_plain
     from vista_tpu_torch.ops.temporal_conv import (_flipped_taps, conv3, conv3_plain, gn_silu,
                                                    gn_silu_conv3, gn_silu_conv3_plain,
                                                    gn_silu_plain)
@@ -496,18 +510,7 @@ def kernel_checks():
 
     # The training path's kernels at the phase-2 shapes: 320x576 -> 40x72
     # latents, 25 frames, batch 1.
-    for shape in [(72000, 320), (2880, 25, 320), (18000, 640), (4500, 1280)]:
-        c = shape[-1]
-        x = rnd(*shape, std=2.0)
-        lw, lb = rnd(c, std=0.1, dtype=torch.float32) + 1, rnd(c, std=0.1, dtype=torch.float32)
-        lwb, lbb = lw.to(bf), lb.to(bf)
-        n = x.numel()
-        ok &= compare("layer_norm", f"{tuple(shape)}",
-                      lambda: layer_norm_kernel(x, lw, lb),
-                      lambda: layer_norm_plain(x, lw, lb),
-                      lambda: layer_norm_plain(*f32(x, lw, lb)), rows, 8 * n, 2 * 2 * n,
-                      lambda: time_ms(lambda: F.layer_norm(x, (c,), lwb, lbb)))
-        del x
+    ok &= ln_checks(rnd, f32, rows)
     for b, s, h, tag in [(25, 2880, 5, "ds1"), (25, 720, 10, "ds2"), (25, 180, 20, "ds4"),
                          (25, 45, 20, "mid"), (2880, 25, 5, "temporal ds1"),
                          (720, 25, 10, "temporal ds2")]:
@@ -549,6 +552,88 @@ def kernel_checks():
     if not agrees:
         raise SystemExit("a route threshold disagrees with the measured crossover")
     return rows
+
+
+# the LayerNorm pair's shapes: phase 2 (320x576: ds1 in the spatial and the
+# temporal layout, ds2, ds4) and phase 1 (576x1024: ds1, ds2, ds4)
+LN_PHASE2 = [(72000, 320), (2880, 25, 320), (18000, 640), (4500, 1280)]
+LN_PHASE1 = [(230400, 320), (57600, 640), (14400, 1280)]
+
+
+def ln_checks(rnd, f32, rows):
+    """layer_norm and ln_bwd against their plain versions, each row with its
+    host-timed kernel and library times and the same two on the device
+    alone (``device_ms``: the phase-2 rows are shorter than a launch from
+    Python). Library: ``F.layer_norm``; ``native_layer_norm_backward`` on
+    bf16 x and dy with the mean and rstd of ``native_layer_norm`` (it does
+    not add ff_bwd's residual cotangent). ln_bwd in its three forms:
+    qkv_bwd's (fp32 dxn, fp32 γ as K2's wrapper holds it, dγ/dβ) and
+    ff_bwd's (fp32 dxn, the residual's cotangent, bf16 γ, dγ/dβ) at the
+    phase-1 shapes; the LoRA norm1's (bf16 dy, bf16 γ, frozen) at the
+    phase-2 ones."""
+    from vista_tpu_torch.ops.norms import (layer_norm_kernel, layer_norm_plain, ln_backward,
+                                           ln_bwd_plain)
+
+    bf = torch.bfloat16
+    ok = True
+
+    def device_row(kernel_fn, library_call):
+        row = rows[-1]
+        row["device_ms"], row["library_device_ms"] = device_ms(kernel_fn), device_ms(library_call)
+        log(f"  {row['kernel']:16s} {row['shape']:38s} device: kernel {row['device_ms']:.4f} ms, "
+            f"library {row['library_device_ms']:.4f} ms; "
+            f"{100 * row['bound_ms'] / row['device_ms']:.0f}% of the bound")
+
+    for shape in LN_PHASE2 + LN_PHASE1:
+        c = shape[-1]
+        x = rnd(*shape, std=2.0)
+        lw, lb = rnd(c, std=0.1) + 1, rnd(c, std=0.1)  # bf16, as the UNet's norms
+        n = x.numel()
+        library = lambda: F.layer_norm(x, (c,), lw, lb)
+        ok &= compare("layer_norm", f"{tuple(shape)}",
+                      lambda: layer_norm_kernel(x, lw, lb),
+                      lambda: layer_norm_plain(x, lw, lb),
+                      lambda: layer_norm_plain(*f32(x, lw, lb)), rows, 8 * n, 2 * 2 * n + 4 * c,
+                      lambda: time_ms(library))
+        device_row(lambda: layer_norm_kernel(x, lw, lb), library)
+        del x
+    for form, shapes, dxn_dtype, with_res, want in [
+            ("qkv_bwd", LN_PHASE1, torch.float32, False, True),
+            ("ff_bwd", LN_PHASE1, torch.float32, True, True),
+            ("LoRA norm1", LN_PHASE2[:1] + LN_PHASE2[2:], bf, False, False)]:
+        for shape in shapes:
+            c = shape[-1]
+            m = math.prod(shape[:-1])
+            x, dxn = rnd(m, c, std=2.0), rnd(m, c, dtype=dxn_dtype)
+            dres = rnd(m, c) if with_res else None
+            lw = rnd(c, std=0.1, dtype=torch.float32 if form == "qkv_bwd" else bf) + 1
+            lb = rnd(c, std=0.1, dtype=lw.dtype)
+
+            def kernel():
+                dx, dg, db = ln_backward(x, dxn, lw, dres, want_ln=want)
+                return (dx, dg, db) if want else dx
+
+            def plain(x, dxn, lw, dres):
+                dx, dg, db = ln_bwd_plain(x, dxn, lw)
+                dx = dx if dres is None else dx + dres.float()
+                return (dx, dg, db) if want else dx
+
+            _, mean, rstd = torch.ops.aten.native_layer_norm(x, [c], lw.to(bf), lb.to(bf), 1e-5)
+            dy, lwb, lbb = dxn.to(bf), lw.to(bf), lb.to(bf)
+            library = lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [c], mean, rstd, lwb, lbb, [True, want, want])
+            # x, dxn, dres in, dx out; γ in and dγ, dβ out
+            nbytes = (m * c * (2 + dxn.element_size() + 2 * with_res + 2)
+                      + c * lw.element_size() + 8 * c * want)
+            tag = (f"{form} ({m},{c}) {str(dxn_dtype)[6:]} dxn" + (" + dres" if with_res else "")
+                   + (", dγ/dβ" if want else ""))
+            ok &= compare("ln_bwd", tag, kernel, lambda: plain(x, dxn, lw, dres),
+                          lambda: plain(*f32(x, dxn, lw, dres)), rows, 0, nbytes,
+                          lambda: time_ms(library))
+            device_row(kernel, library)
+            del x, dxn, dres, dy
+    torch.cuda.empty_cache()
+    return ok
 
 
 def attention_routes(b, s, h):
@@ -1329,6 +1414,7 @@ def train_run(seed):
     log(f"  launches over the {TRAIN_STEPS} steps: {json.dumps(sites, sort_keys=True)}")
     missing = missing_launches(TRAIN_KERNELS + ATTENTION_ROUTES + ATTENTION_BWD_ROUTES, [
         "layer_norm/spatial-long", "layer_norm/spatial-short", "layer_norm/temporal",
+        "ln_bwd/spatial-long", "ln_bwd/spatial-short", "ln_bwd/temporal", "ln_bwd/ff-bwd",
         "attention/spatial-long", "attention/spatial-short", "attention/temporal",
         "attention_bwd/spatial-long", "attention_bwd/spatial-short", "attention_bwd/temporal",
         "ln_linear/ff", "linear_residual/ff", "ff_bwd/ff", "gn_silu_conv3/emb",
@@ -1612,7 +1698,8 @@ def phase1_run(seed):
         faults.append(f"frozen tensors changed: {moved_frozen[:3]}")
     missing = missing_launches(PHASE1_KERNELS + ATTENTION_ROUTES + ATTENTION_BWD_ROUTES, [
         "qkv_bwd/spatial-long", "qkv_bwd/spatial-short", "qkv_bwd/temporal",
-        "linear_residual_bwd/attn-out", "linear_residual_bwd/temporal-out",
+        "ln_bwd/spatial-long-qkv-bwd", "ln_bwd/spatial-short-qkv-bwd", "ln_bwd/temporal-qkv-bwd",
+        "ln_bwd/ff-bwd", "linear_residual_bwd/attn-out", "linear_residual_bwd/temporal-out",
         "ln_linear/qkv", "ln_linear/temporal-qkv", "linear_residual/attn-out",
         "linear_residual/temporal-out",
         "attention/spatial-long", "attention/spatial-short", "attention/temporal",

@@ -24,7 +24,9 @@ from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_bwd,
                                         ln_linear, ln_linear_plain, ln_linear_split_bwd,
                                         ln_linear_split_bwd_plain, seg_gemm, seg_gemm_plain,
                                         weight_grad, weight_grad_plain, wgrad_plan)
-from vista_tpu_torch.ops.norms import layer_norm_kernel, layer_norm_plain
+from vista_tpu_torch.ops import norms
+from vista_tpu_torch.ops.norms import (layer_norm_kernel, layer_norm_plain, ln_backward,
+                                       ln_bwd_plain, ln_plan)
 from vista_tpu_torch.ops.temporal_conv import (_conv3_weight_grad, conv3, conv3_plain,
                                                fused_gn_silu_conv3_emb, fused_gn_silu_conv3_res,
                                                gn_silu, gn_silu_conv3, gn_silu_conv3_plain,
@@ -236,6 +238,126 @@ def test_layer_norm(rnd, shape):
     x = rnd(*shape, std=2.0)
     lw, lb = 1 + rnd(c, std=0.1, dtype=torch.float32), rnd(c, std=0.1, dtype=torch.float32)
     _check(layer_norm_kernel(x, lw, lb), layer_norm_plain(*_f32(x, lw, lb)))
+
+
+# (rows, c): every width the row plan takes a different group size at (c =
+# 32 and 64: 1 and 2 lanes a row; the UNet's 320, 640, 1280: 8, 16, 32),
+# row counts that are not a multiple of a warp step or of the grid, and one
+# large enough for the persistent grid to walk several steps a warp
+LN_SHAPES = [(7, 32), (45, 64), (301, 320), (1125, 640), (77, 1280), (20011, 320)]
+
+
+@pytest.mark.parametrize("m,c", LN_SHAPES)
+def test_layer_norm_widths(rnd, m, c):
+    """Every width and ragged row count, γ/β in bf16 and in fp32: the kernel
+    reads bf16 γ/β as the same fp32 values that ``.float()`` gives, so the
+    two outputs are identical."""
+    x = (rnd(m, c, dtype=torch.float32) * 2 + 0.5).to(torch.bfloat16)
+    lwb, lbb = 1 + rnd(c, std=0.1), rnd(c, std=0.1)
+    got_bf16 = layer_norm_kernel(x, lwb, lbb)
+    got_f32 = layer_norm_kernel(x, lwb.float(), lbb.float())
+    torch.cuda.synchronize()
+    assert torch.equal(got_bf16, got_f32)
+    _check(got_f32, layer_norm_plain(*_f32(x, lwb, lbb)))
+
+
+@pytest.mark.parametrize("m,c", LN_SHAPES)
+@pytest.mark.parametrize("dxn_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("want_ln", [True, False])
+def test_ln_backward(rnd, m, c, dxn_dtype, with_res, want_ln):
+    x = rnd(m, c, std=2.0)
+    dxn = rnd(m, c, dtype=dxn_dtype)
+    dres = rnd(m, c) if with_res else None
+    lw = 1 + rnd(c, std=0.1, dtype=torch.float32)
+    _build.reset_counts()
+    dx, dg, db = ln_backward(x, dxn, lw, dres, 1e-5, want_ln)
+    assert _build.LAUNCHES["ln_bwd"] == 1
+    ref_dx, ref_dg, ref_db = ln_bwd_plain(*_f32(x, dxn, lw))
+    if with_res:
+        ref_dx = ref_dx + dres.float()
+    _check(dx, ref_dx)
+    if want_ln:
+        assert dg.dtype == db.dtype == torch.float32
+        _check(dg, ref_dg)
+        _check(db, ref_db)
+    else:
+        assert dg is None and db is None
+
+
+def test_ln_backward_bf16_gamma(rnd):
+    """bf16 γ gives the bits of the same γ in fp32."""
+    m, c = 3001, 640
+    x, dxn = rnd(m, c, std=2.0), rnd(m, c)
+    lwb = 1 + rnd(c, std=0.1)
+    got = ln_backward(x, dxn, lwb)
+    ref = ln_backward(x, dxn, lwb.float())
+    torch.cuda.synchronize()
+    for t, u in zip(got, ref):
+        assert torch.equal(t, u)
+
+
+@pytest.mark.parametrize("m,c", [(230400 // 8, 320), (14400, 1280)])
+def test_ln_backward_is_deterministic(rnd, m, c):
+    """dγ and dβ from the in-launch fold (more than one group of blocks
+    here) and dx: two launches give the same bits."""
+    assert ln_plan(m, c, norms.sm_count(0), backward=True).groups > 1
+    x, dxn, dres = rnd(m, c, std=2.0), rnd(m, c, dtype=torch.float32), rnd(m, c)
+    lw = 1 + rnd(c, std=0.1, dtype=torch.float32)
+    first, second = (ln_backward(x, dxn, lw, dres) for _ in range(2))
+    torch.cuda.synchronize()
+    for t, u in zip(first, second):
+        assert torch.equal(t, u)
+
+
+def test_ln_kernels_fit_the_plans_blocks_an_sm(rnd):
+    """Every instance of both LayerNorm kernels gets LN_BLOCKS_PER_SM (2)
+    blocks an SM at its registers and shared memory."""
+    blocks = norms.ln_occupancy()
+    assert len(blocks) == 10 and min(blocks.values()) >= norms.LN_BLOCKS_PER_SM, blocks
+
+
+def test_lora_self_attention_backward_takes_the_kernels(rnd, monkeypatch):
+    """Under LoRA the norm1 backward runs ``ln_bwd_kernel`` on the card: the
+    plain versions raise on CUDA tensors here, and the gradient of x agrees
+    with the same module in fp32 on the CPU (bound 5e-2: a bf16 chain of
+    LayerNorm, four products and a softmax against fp32)."""
+    import copy
+
+    from vista_tpu_torch.models.attention import CrossAttention
+
+    def cpu_only(fn):
+        def wrapped(x, *args, **kwargs):
+            if x.is_cuda:
+                raise AssertionError(f"{fn.__name__} ran on a CUDA tensor")
+            return fn(x, *args, **kwargs)
+        return wrapped
+
+    torch.manual_seed(0)
+    c, heads = 128, 2
+    attn = CrossAttention(c, heads, 64, add_lora=True)
+    norm = torch.nn.LayerNorm(c)
+    with torch.no_grad():
+        for p in (*attn.parameters(), *norm.parameters()):
+            p.add_(0.05 * torch.randn_like(p))
+    norm.requires_grad_(False)  # LoRA freezes the norms
+    x_cpu = torch.randn(3, 50, c)
+    cpu_attn, cpu_norm = copy.deepcopy(attn), copy.deepcopy(norm)
+    x_ref = x_cpu.clone().requires_grad_()
+    cpu_attn.self_attention(x_ref, cpu_norm).sum().backward()
+
+    attn, norm = attn.cuda().to(torch.bfloat16), norm.cuda().to(torch.bfloat16)
+    monkeypatch.setattr(norms, "layer_norm_plain", cpu_only(norms.layer_norm_plain))
+    monkeypatch.setattr(norms, "ln_bwd_plain", cpu_only(norms.ln_bwd_plain))
+    x = x_cpu.cuda().to(torch.bfloat16).requires_grad_()
+    _build.reset_counts()
+    attn.self_attention(x, norm).float().sum().backward()
+    assert _build.SITES["layer_norm/spatial-short"] == 1
+    assert _build.SITES["ln_bwd/spatial-short"] == 1
+    assert norm.weight.grad is None
+    torch.cuda.synchronize()
+    err = (x.grad.float().cpu() - x_ref.grad).abs().max() / x_ref.grad.abs().max()
+    assert err <= 5e-2, float(err)
 
 
 @pytest.mark.parametrize("b,s_q,s_k,heads,valid_k", [

@@ -1,10 +1,11 @@
 #!/bin/bash
 # A/B of two trees of the PyTorch port on one card, in turns: parent,
 # change, change, parent. Each run is the tree's own `chip_smoke.py
-# --profile`, then tools/torch_ff_bwd_dh_alone.py, tools/torch_attention_alone.py
-# and tools/torch_k4_alone.py in the same tree; after the four runs, the
-# change's card tests and a comparison of the SASS of every kernel that the
-# two libraries share by name (a kernel in one tree only is listed as such).
+# --profile`, then tools/torch_ff_bwd_dh_alone.py, tools/torch_attention_alone.py,
+# tools/torch_k4_alone.py and tools/torch_ln_alone.py in the same tree;
+# after the four runs, the change's card tests and a comparison of the SASS
+# of every kernel that the two libraries share by name (a kernel in one tree
+# only is listed as such).
 #
 # Unpack both trees into a gitignored directory first, e.g.
 #   git archive <parent commit> | tar -x -C build/ab/parent
@@ -12,28 +13,33 @@
 # then, from the root of the checkout on the card's machine:
 #   bash tools/torch_chip_ab.sh build/ab/parent build/ab/change
 # Logs and each run's tables go to ab/ in chip_smoke.py's output directory
-# (chip_smoke.OUT). With a third argument `train`, it runs only the phase-2
-# step (chip_smoke.train_run), eight times, the two trees alternating, for a
-# host-bound metric whose spread needs more runs; logs go to ab_train/.
+# (chip_smoke.OUT). With a third argument `train` (or `phase1`), it runs only
+# the phase-2 step (chip_smoke.train_run; or the phase-1 micro-steps,
+# chip_smoke.phase1_run), eight times, the two trees alternating, for a
+# host-bound metric whose spread needs more runs; logs go to ab_train/ (or
+# ab_phase1/).
 set -u
 PARENT=$1
 CHANGE=$2
+MODE=${3:-}
 HERE=$PWD
 RESULTS=$(python3 -c "import chip_smoke; print(chip_smoke.OUT)")
 OUT=$HERE/$RESULTS/ab
-[ "${3:-}" = train ] && OUT=$HERE/$RESULTS/ab_train
+[ -n "$MODE" ] && OUT=$HERE/$RESULTS/ab_$MODE
 mkdir -p "$OUT"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader > "$OUT/card.txt"
-if [ "${3:-}" = train ]; then
+if [ "$MODE" = train ] || [ "$MODE" = phase1 ]; then
+  run=train_run lines="train: |profile train_step|rc="
+  [ "$MODE" = phase1 ] && run=phase1_run lines="phase 1 at|profile phase1|rc="
   for i in 1 2 3 4 5 6 7 8; do
     side=parent dir=$PARENT
     [ $((i % 2)) = 0 ] && side=change dir=$CHANGE
     log="$OUT/run${i}_${side}.txt"
     (cd "$dir" && timeout -k 10 300 python3 -c \
-       "import chip_smoke as cs; cs.card_check(); cs.build(); cs.train_run(0)" > "$log" 2>&1
+       "import chip_smoke as cs; cs.card_check(); cs.build(); cs.$run(0)" > "$log" 2>&1
      echo "rc=$?" >> "$log")
     echo "== run $i $side"
-    grep -E "train: |profile train_step|rc=" "$log"
+    grep -E "$lines" "$log"
   done
   exit 0
 fi
@@ -47,7 +53,8 @@ for side in parent change change parent; do
    echo "rc=$?" >> "$log"
    timeout -k 10 120 python3 "$HERE/tools/torch_ff_bwd_dh_alone.py" >> "$log" 2>&1
    timeout -k 10 120 python3 "$HERE/tools/torch_attention_alone.py" >> "$log" 2>&1
-   timeout -k 10 120 python3 "$HERE/tools/torch_k4_alone.py" >> "$log" 2>&1)
+   timeout -k 10 120 python3 "$HERE/tools/torch_k4_alone.py" >> "$log" 2>&1
+   timeout -k 10 120 python3 "$HERE/tools/torch_ln_alone.py" >> "$log" 2>&1)
   rm -rf "$OUT/run${i}_${side}_out"
   mv "$dir/$RESULTS" "$OUT/run${i}_${side}_out" 2>/dev/null
   echo "== run $i $side"

@@ -24,17 +24,16 @@
 //   2. dxn = dH W1 (fp32, M x c), the product feeding the LN backward,
 //      which needs whole rows: vk_seg_gemm of csrc/qkv_bwd.cu with one
 //      segment (the caller launches it);
-//   3. ln_bwd: one warp per row recomputes mean and rstd, then
-//      dx = rstd (dxn*gamma - mean(dxn*gamma) - xhat mean(dxn*gamma*xhat))
-//      + dy (the residual), and per-block partial column sums of dxn * xhat
-//      (dgamma) and dxn (dbeta);
+//   3. ln_bwd: dx = rstd (dxn*gamma - mean(dxn*gamma) - xhat
+//      mean(dxn*gamma*xhat)) + dy (the residual), dgamma and dbeta, in one
+//      launch (csrc/layer_norm.cu ln_bwd_kernel, the caller launches it);
 //   4. wgrad (weight grads only): dW1 = dH^T xn and dW2 = dy^T hg, the
 //      contraction over all M tokens split into S ranges, each item
 //      writing an fp32 partial (S, N1, N2); TMA + wgmma on the skeleton of
 //      csrc/gemm_tma.cuh, the operands read as stored (both MN-major). The
 //      same launch serves qkv_bwd's dWq/dWk/dWv (segments) and K3's dWo;
 //   5. col_sum: db1 = colsum(dH), db2 = colsum(dy) as per-range partials;
-//   6. sum_splits: adds the partials of 3-5 in a fixed order, in the
+//   6. sum_splits: adds the partials of 4-5 in a fixed order, in the
 //      weight's dtype. Every reduction is deterministic: no atomics.
 //
 // Bound on the H100: the products (2 * M * c * 8c for [a|g], 2 * M * c * 4c
@@ -177,102 +176,6 @@ ff_bwd_dh_tma_kernel(__grid_constant__ const CUtensorMap tm_xn,
       }
     }
     if (leader) bulk_wait<0>();
-  }
-}
-
-// 3. LayerNorm backward; one warp per row, rows [r0, r1) per block; a row of
-// C <= 1280 is held as up to 5 chunks of 8 per lane.
-constexpr int LN_CHUNKS = 5;
-
-__global__ void __launch_bounds__(256)
-ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dxn,
-              const float* __restrict__ gamma, const bf16* __restrict__ dres,
-              bf16* __restrict__ dx, float* __restrict__ dgamma_part,
-              float* __restrict__ dbeta_part, int M, int C, int rows_per_block,
-              float eps) {
-  __shared__ float s_dg[1280], s_db[1280];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int chunks = C / 8;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(M, r0 + rows_per_block);
-  float pg[LN_CHUNKS][8], pb[LN_CHUNKS][8];
-#pragma unroll
-  for (int c = 0; c < LN_CHUNKS; ++c)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) pg[c][e] = pb[c][e] = 0.f;
-
-  for (int r = r0 + warp; r < r1; r += 8) {
-    float xv[LN_CHUNKS][8], gv[LN_CHUNKS][8];
-    float s = 0.f, ss = 0.f;
-#pragma unroll
-    for (int c = 0; c < LN_CHUNKS; ++c) {
-      const int ch = lane + 32 * c;
-      if (ch >= chunks) break;
-      unpack8(*reinterpret_cast<const uint4*>(x + (size_t)r * C + ch * 8), xv[c]);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        s += xv[c][e];
-        ss += xv[c][e] * xv[c][e];
-      }
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    const float mean = s / C;
-    const float rstd = rsqrtf(fmaxf(ss / C - mean * mean, 0.f) + eps);
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int c = 0; c < LN_CHUNKS; ++c) {
-      const int ch = lane + 32 * c;
-      if (ch >= chunks) break;
-      const float* dr = dxn + (size_t)r * C + ch * 8;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float xh = (xv[c][e] - mean) * rstd;
-        const float d = dr[e];
-        pg[c][e] += d * xh;
-        pb[c][e] += d;
-        gv[c][e] = d * gamma[ch * 8 + e];
-        xv[c][e] = xh;
-        s1 += gv[c][e];
-        s2 += gv[c][e] * xh;
-      }
-    }
-    s1 = warp_sum(s1) / C;
-    s2 = warp_sum(s2) / C;
-#pragma unroll
-    for (int c = 0; c < LN_CHUNKS; ++c) {
-      const int ch = lane + 32 * c;
-      if (ch >= chunks) break;
-      float o[8], rv[8];
-      if (dres)
-        unpack8(*reinterpret_cast<const uint4*>(dres + (size_t)r * C + ch * 8), rv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        o[e] = rstd * (gv[c][e] - s1 - xv[c][e] * s2) + (dres ? rv[e] : 0.f);
-      *reinterpret_cast<uint4*>(dx + (size_t)r * C + ch * 8) = pack8(o);
-    }
-  }
-  if (!dgamma_part) return;
-  // Fixed-order reduction of the 8 warps' partials through shared memory.
-  for (int w = 0; w < 8; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int c = 0; c < LN_CHUNKS; ++c) {
-        const int ch = lane + 32 * c;
-        if (ch >= chunks) break;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int col = ch * 8 + e;
-          s_dg[col] = (w ? s_dg[col] : 0.f) + pg[c][e];
-          s_db[col] = (w ? s_db[col] : 0.f) + pb[c][e];
-        }
-      }
-    }
-    __syncthreads();
-  }
-  for (int col = threadIdx.x; col < C; col += 256) {
-    dgamma_part[(size_t)blockIdx.x * C + col] = s_dg[col];
-    dbeta_part[(size_t)blockIdx.x * C + col] = s_db[col];
   }
 }
 
@@ -419,21 +322,6 @@ extern "C" int vk_ff_bwd_dh(const void* xn, const void* dy, const void* w1, cons
     return (int)e;
   ff_bwd_dh_tma_kernel<<<grid, TG_THREADS, FB_SMEM, (cudaStream_t)stream>>>(
       tm_xn, tm_dy, tm_w1, tm_w2, tm_hg, tm_dh, (const float*)b1, M, C, N);
-  return (int)cudaGetLastError();
-}
-
-// 3. x (M, C) bf16, dxn (M, C) fp32, gamma (C) fp32, dres (M, C) bf16 or
-// null -> dx (M, C) bf16 and, unless null, partials (blocks, C) fp32.
-// C % 8 == 0, C <= 1280.
-extern "C" int vk_ln_bwd(const void* x, const void* dxn, const void* gamma,
-                         const void* dres, void* dx, void* dgamma_part,
-                         void* dbeta_part, int M, int C, int blocks,
-                         float eps, void* stream) {
-  const int rows_per_block = (M + blocks - 1) / blocks;
-  vk::ln_bwd_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)dxn, (const float*)gamma,
-      (const bf16*)dres, (bf16*)dx, (float*)dgamma_part, (float*)dbeta_part,
-      M, C, rows_per_block, eps);
   return (int)cudaGetLastError();
 }
 

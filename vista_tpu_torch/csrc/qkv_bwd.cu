@@ -18,10 +18,11 @@
 // over a sequential token grid. A Hopper block has 227 KB of shared memory
 // (one 1280 x 1280 bf16 weight is 3.3 MB) and blocks run in no order, so the
 // backward of K2 split (ops/linear.py ln_linear_split_bwd) is this GEMM
-// between kernels shared with csrc/ff_bwd.cu: xn recomputed by
-// csrc/layer_norm.cu, dx, dgamma, dbeta by vk_ln_bwd (with the residual's
-// cotangent added), dW = g_i^T xn by the split-K vk_wgrad whose fp32
-// partials vk_sum_splits adds in a fixed order. No atomics: deterministic.
+// between kernels shared with csrc/ff_bwd.cu: xn recomputed and dx, dgamma,
+// dbeta computed by csrc/layer_norm.cu (vk_layer_norm, vk_ln_bwd), dW =
+// g_i^T xn by the split-K vk_wgrad whose fp32 partials vk_sum_splits adds in
+// a fixed order. Every sum is taken in an order fixed by the launch:
+// deterministic.
 //
 // Bound on the H100 (c = inner at every UNet width): dxn is 2 * M * 3c * c
 // operations against M * (3c * 2 + c * 4) bytes, 0.6 c operations per byte;

@@ -46,11 +46,12 @@ _SIGNATURES = {
     "vk_attention_bwd_prep": [_P] * 4 + [_I] * 4 + [_P],
     "vk_attention_bwd_short": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P],
     "vk_attention_bwd_wgmma": [_P] * 8 + [_I] * 6 + [_F, _P],
-    "vk_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
+    "vk_layer_norm": [_P] * 4 + [_I] * 5 + [_F, _P],
     "vk_conv3": [_P] * 7 + [_I] * 7 + [_P],
     "vk_gn_silu": [_P] * 4 + [_I] * 3 + [_P],
     "vk_ff_bwd_dh": [_P] * 7 + [_I] * 4 + [_P],
-    "vk_ln_bwd": [_P] * 7 + [_I, _I, _I, _F, _P],
+    "vk_ln_bwd": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "vk_ln_occupancy": [_P],
     "vk_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vk_col_sum": [_P, _P, _I, _I, _I, _I, _P],
     "vk_sum_splits": [_P, _P, _I, _L, _I, _P],

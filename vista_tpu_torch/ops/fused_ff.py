@@ -24,9 +24,10 @@ import torch
 
 from vista_tpu_torch.ops import _build
 from vista_tpu_torch.ops.linear import (ALIGN_SLACK, BOX_BYTES, GEMM_TILE, TOKEN_BOX, GemmPlan,
-                                        column_sum, gelu_erf, linear_residual, ln_backward,
-                                        ln_linear, seg_gemm, sm_count, weight_grad)
-from vista_tpu_torch.ops.norms import MAX_C, layer_norm_kernel, layer_norm_plain, ln_bwd_plain
+                                        column_sum, gelu_erf, linear_residual, ln_linear,
+                                        seg_gemm, weight_grad)
+from vista_tpu_torch.ops.norms import (MAX_C, layer_norm_kernel, layer_norm_plain, ln_backward,
+                                       ln_bwd_plain, sm_count)
 
 
 def _forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, site):
@@ -119,8 +120,9 @@ def ff_bwd(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5, needs=(True,) * 7,
            site: str = "ff"):
     """Gradients of the feed-forward w.r.t. (x, ln_w, ln_b, w1, b1, w2, b2);
     None where ``needs`` is false. CUDA tensors: ``csrc/ff_bwd.cu`` with the
-    helpers of ``ops/linear.py`` (:func:`seg_gemm` for dxn, :func:`ln_backward`,
-    the split-K weight grads and column sums)."""
+    helpers of ``ops/linear.py`` (:func:`seg_gemm` for dxn, the split-K weight
+    grads and column sums) and ``ops/norms.py`` (the xn recompute and
+    :func:`ln_backward`)."""
     if _build.on_cpu(x, dy):
         grads = ff_bwd_plain(x, ln_w, ln_b, w1, b1, w2, dy, eps)
         return tuple(g if need else None for g, need in zip(grads, needs))
@@ -135,7 +137,7 @@ def ff_bwd(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5, needs=(True,) * 7,
     hg, dh = ff_bwd_dh(xn.view(m, c), dy.view(m, c), w1, b1.float().contiguous(), w2, site)
     dxn = seg_gemm(dh.view(1, m, 2 * n), w1, torch.float32)
     want_ln = needs[1] or needs[2]
-    dx, dln_w, dln_b = ln_backward(x, dxn, ln_w, dy, eps, want_ln)
+    dx, dln_w, dln_b = ln_backward(x, dxn, ln_w, dy, eps, want_ln, site=f"{site}-bwd")
     del dxn
     out = [dx, None, None, None, None, None, None]
     if want_ln:

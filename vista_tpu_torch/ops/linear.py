@@ -29,7 +29,8 @@ explicit fp32 formulas:
   1): :func:`ln_linear_split_bwd`, replacing the TPU kernel
   ``_qkv_bwd_kernel`` — xn recomputed by the layer_norm kernel, dxn =
   Σᵢ gᵢ Wᵢ as one segmented GEMM (``csrc/qkv_bwd.cu``), the LN backward
-  and the split-K weight gradients of ``csrc/ff_bwd.cu``;
+  (``ln_bwd_kernel``, ``csrc/layer_norm.cu``) and the split-K weight
+  gradients of ``csrc/ff_bwd.cu``;
 - K3: :func:`linear_residual_bwd` — da = g W (``csrc/qkv_bwd.cu``), dW =
   gᵀa, db = colsum(g) (``csrc/ff_bwd.cu``), dresidual = g;
 - K2 ``"geglu"`` has no backward of its own: inside the differentiable
@@ -45,7 +46,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from vista_tpu_torch.ops import _build
-from vista_tpu_torch.ops.norms import MAX_C, layer_norm_kernel, layer_norm_plain, ln_bwd_plain
+from vista_tpu_torch.ops.norms import (MAX_C, layer_norm_kernel, layer_norm_plain, ln_backward,
+                                       ln_bwd_plain, sm_count)
 
 _TILE_K = 32  # K2 and qkv_bwd take c % 32 == 0
 _K2_MAX_K = 1984  # K2 stages gamma and beta in shared memory
@@ -150,11 +152,6 @@ def linear_residual_plan(m: int, k: int, n: int, sms: int = 132) -> GemmPlan:
                     STAGE_BYTES, staging, smem)
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def sum_splits(part: torch.Tensor, splits: int, shape, dtype=torch.float32):
     """``part.sum(0)`` in fp32, in order of the split (``vk_sum_splits``),
     as a new tensor of ``shape`` in ``dtype`` (fp32 or bf16)."""
@@ -201,27 +198,6 @@ def column_sum(a: torch.Tensor):
     part = torch.empty(splits, n, dtype=torch.float32, device=a.device)
     _build.launch("vk_col_sum", a.data_ptr(), part.data_ptr(), m, n, splits, per)
     return sum_splits(part, splits, (n,))
-
-
-def ln_backward(x, dxn, ln_w, dres=None, eps=1e-5, want_ln=True):
-    """The gradient through ``LN(x)`` of the fp32 cotangent ``dxn`` (M, c)
-    (``vk_ln_bwd``, one warp per row): dx in x's dtype, plus ``dres`` (the
-    cotangent of a residual of x) when given; with ``want_ln`` also dγ and
-    dβ in fp32, their per-block partials summed in a fixed order. Returns
-    (dx, dγ, dβ), None for the last two unless ``want_ln``."""
-    m, c = dxn.shape
-    gamma = ln_w.float().contiguous()
-    _build.check(gamma, "ln_w", torch.float32, (c,))
-    blocks = min(-(-m // 8), 512)
-    dx = torch.empty_like(x)
-    parts = [torch.empty(blocks, c, dtype=torch.float32, device=x.device) for _ in range(2)] \
-        if want_ln else [None, None]
-    _build.launch("vk_ln_bwd", x.data_ptr(), dxn.data_ptr(), gamma.data_ptr(), _build.ptr(dres),
-                  dx.data_ptr(), _build.ptr(parts[0]), _build.ptr(parts[1]), m, c, blocks,
-                  float(eps))
-    if not want_ln:
-        return dx, None, None
-    return dx, sum_splits(parts[0], blocks, (c,)), sum_splits(parts[1], blocks, (c,))
 
 
 def seg_gemm_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -340,7 +316,8 @@ def ln_linear_split_bwd(x, ln_w, ln_b, w, g, eps=1e-5, needs=(True,) * 4,
     if needs[0] or needs[1] or needs[2]:
         dxn = seg_gemm(g3, w, torch.float32)
         want_ln = needs[1] or needs[2]
-        out[0], dln_w, dln_b = ln_backward(x, dxn, ln_w, None, eps, want_ln)
+        out[0], dln_w, dln_b = ln_backward(x, dxn, ln_w, None, eps, want_ln,
+                                           site=f"{site}-qkv-bwd")
         del dxn
         if want_ln:
             out[1], out[2] = dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype)
