@@ -112,7 +112,8 @@ KERNELS = {
                  "vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel's softmax backward: "
                  "short route)"),
     "ff_bwd": dict(
-        route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu (ff_bwd_dh, vk_wgrad) "
+        route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu (ff_bwd_dh; vk_wgrad with db1 / "
+                             "db2 from its side warps and the split fold in the launch) "
                              "with csrc/qkv_bwd.cu (vk_seg_gemm), csrc/gemm_tma.cuh and "
                              "csrc/layer_norm.cu (vk_layer_norm, vk_ln_bwd)",
         replaces="vista_tpu/ops/fused_ff.py:307 (_ff_bwd_kernel); "
@@ -128,14 +129,15 @@ KERNELS = {
         replaces="vista_tpu/ops/temporal_conv.py:155 (_conv3_kernel)"),
     "qkv_bwd": dict(
         route="cuda", source="vista_tpu_torch/csrc/qkv_bwd.cu (vk_seg_gemm) with "
-                             "csrc/ff_bwd.cu (vk_wgrad, vk_sum_splits), csrc/gemm_tma.cuh "
-                             "and csrc/layer_norm.cu (vk_layer_norm, vk_ln_bwd)",
+                             "csrc/ff_bwd.cu (vk_wgrad, the split fold in the launch), "
+                             "csrc/gemm_tma.cuh and csrc/layer_norm.cu (vk_layer_norm, "
+                             "vk_ln_bwd)",
         replaces="vista_tpu/ops/fused_qkv.py:224 (_qkv_bwd_kernel); "
                  "vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, LN + q/k/v backward)"),
     "linear_residual_bwd": dict(
         route="cuda", source="vista_tpu_torch/csrc/qkv_bwd.cu (vk_seg_gemm) with "
-                             "csrc/ff_bwd.cu (vk_wgrad, vk_col_sum, vk_sum_splits) and "
-                             "csrc/gemm_tma.cuh",
+                             "csrc/ff_bwd.cu (vk_wgrad: dWo, and dbo from its side warps, "
+                             "the split fold in the launch) and csrc/gemm_tma.cuh",
         replaces="vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, out-projection "
                  "backward: do, dWo, dbo)"),
 }
@@ -148,9 +150,10 @@ PHASE1_KERNELS = TRAIN_KERNELS + ("qkv_bwd", "linear_residual_bwd")
 ATTENTION_ROUTES = ("attention:wgmma", "attention:short")
 ATTENTION_BWD_ROUTES = ("attention_bwd:wgmma", "attention_bwd:short")
 # the demangled names of each group's device functions, for the profiles
-# (the first group whose prefix matches takes a kernel); vk_wgrad, seg_gemm,
-# the LN backward and the split-K reductions serve ff_bwd, qkv_bwd and K3's
-# backward alike (ln_bwd also the LoRA norm1 sites); each attention
+# (the first group whose prefix matches takes a kernel); vk_wgrad (with the
+# bias gradients and the split-K fold in its launch), seg_gemm and the LN
+# backward serve ff_bwd, qkv_bwd and K3's backward alike (vk_wgrad also
+# conv3's dW and db, ln_bwd the LoRA norm1 sites); each attention
 # kernel's routes are apart. Every __global__ function of
 # vista_tpu_torch/csrc/ belongs to one group (tests/test_torch_gemm_plan.py).
 SYMBOLS = {
@@ -167,10 +170,8 @@ SYMBOLS = {
     "attention_bwd (short, Sk <= 64)": ("vk::attn_bwd_short_kernel<",),
     "ff_bwd_dh": ("vk::ff_bwd_dh_tma_kernel",),
     "seg_gemm (dxn of ff_bwd, qkv_bwd; K3 da)": ("vk::seg_gemm_tma_kernel",),
-    "vk_wgrad (split-K dW of ff_bwd, qkv_bwd, K3)": ("vk::wgrad_tma_kernel",),
+    "vk_wgrad (split-K dW + db, fold in-launch)": ("vk::wgrad_tma_kernel",),
     "ln_bwd": ("vk::ln_bwd_kernel",),
-    "col_sum": ("vk::col_sum_kernel",),
-    "sum_splits": ("vk::sum_splits_kernel",),
 }
 
 
@@ -941,15 +942,15 @@ def ff_composite_bwd_ms(x, lw, lb, w1, b1, w2):
     return composite_bwd_ms(fwd, params)
 
 
-# vk_wgrad as (M; segs x N1 x N2) and vk_seg_gemm as (segs, M, k) -> N, at
-# every shape the phase-1 step gives them
-WGRAD_SHAPES = [(230400, 1, 320, 320, "one qkv segment; K3 attn-out ds1"),
-                (230400, 3, 320, 320, "qkv ds1, all three segments"),
-                (230400, 1, 2560, 320, "ff_bwd dW1 ds1"),
-                (230400, 1, 320, 1280, "ff_bwd dW2 ds1"),
-                (57600, 3, 640, 640, "qkv ds2"),
-                (14400, 3, 1280, 1280, "qkv ds4"),
-                (14400, 1, 1280, 1280, "K3 temporal-out ds4")]
+# vk_wgrad as (M; segs x N1 x N2; with the bias gradient) and vk_seg_gemm as
+# (segs, M, k) -> N, at every shape the phase-1 step gives them
+WGRAD_SHAPES = [(230400, 1, 320, 320, True, "one qkv segment; K3 attn-out ds1"),
+                (230400, 3, 320, 320, False, "qkv ds1, all three segments"),
+                (230400, 1, 2560, 320, True, "ff_bwd dW1 ds1"),
+                (230400, 1, 320, 1280, True, "ff_bwd dW2 ds1"),
+                (57600, 3, 640, 640, False, "qkv ds2"),
+                (14400, 3, 1280, 1280, False, "qkv ds4"),
+                (14400, 1, 1280, 1280, True, "K3 temporal-out ds4")]
 SEG_GEMM_SHAPES = [(3, 230400, 320, 320, torch.float32, "qkv dxn ds1"),
                    (1, 230400, 2560, 320, torch.float32, "ff_bwd dxn ds1"),
                    (1, 230400, 320, 320, torch.bfloat16, "K3 da ds1"),
@@ -965,26 +966,45 @@ FF_BWD_DH_SHAPES = [(230400, 320, "ds1 576x1024"), (57600, 640, "ds2 576x1024"),
 
 def primitive_checks(rnd, rows):
     """The two GEMMs under ff_bwd, qkv_bwd and K3's backward, each alone:
-    ``weight_grad`` (vk_wgrad + the split sum, fp32 out) and ``seg_gemm``
+    ``weight_grad`` (vk_wgrad with its split fold, fp32 out) and ``seg_gemm``
     against their fp32 plain versions, with one cuBLAS call of the same
     product in bf16 as the yardstick (``torch.mm``, which writes bf16 where
     vk_wgrad and the fp32 seg_gemm rows write fp32; the segments laid out
-    as one (M, segs * k) operand for it beforehand); then ff_bwd's first
-    step, ``ff_bwd_dh``, alone (no one library call computes it)."""
+    as one (M, segs * k) operand for it beforehand); at the shapes of a
+    layer with a bias, ``weight_grad`` with its bias gradient as well (the
+    cotangent still read once; beside ``torch.mm``, ``torch.sum`` in fp32);
+    and whether two launches give the same bits (dW, db); then ff_bwd's
+    first step, ``ff_bwd_dh``, alone (no one library call computes it)."""
     from vista_tpu_torch.ops.fused_ff import ff_bwd_dh, ff_bwd_dh_plain
-    from vista_tpu_torch.ops.linear import (seg_gemm, seg_gemm_plain, weight_grad,
-                                            weight_grad_plain)
+    from vista_tpu_torch.ops.linear import (bias_grad_plain, seg_gemm, seg_gemm_plain,
+                                            weight_grad, weight_grad_plain)
 
     ok = True
-    for m, segs, n1, n2, use in WGRAD_SHAPES:
+    for m, segs, n1, n2, bias, use in WGRAD_SHAPES:
         a, b = (rnd(segs, m, n1) if segs > 1 else rnd(m, n1)), rnd(m, n2)
         flat = a.permute(1, 0, 2).reshape(m, segs * n1) if segs > 1 else a
+        nbytes = 2 * m * (segs * n1 + n2) + 4 * segs * n1 * n2
         ok &= compare("vk_wgrad", f"({m}; {segs}x{n1} x {n2}) {use}, fp32 (cuBLAS bf16)",
                       lambda: weight_grad(a, b), lambda: weight_grad_plain(a, b),
-                      lambda: weight_grad_plain(a, b), rows,
-                      2 * m * segs * n1 * n2, 2 * m * (segs * n1 + n2) + 4 * segs * n1 * n2,
+                      lambda: weight_grad_plain(a, b), rows, 2 * m * segs * n1 * n2, nbytes,
                       lambda: time_ms(lambda: torch.mm(flat.t(), b)))
-        del a, b, flat
+        if bias:
+            ok &= compare("vk_wgrad", f"({m}; {segs}x{n1} x {n2}) {use}, with db "
+                          "(cuBLAS bf16 + torch.sum)",
+                          lambda: weight_grad(a, b, want_db=True),
+                          lambda: (weight_grad_plain(a, b), bias_grad_plain(a)),
+                          lambda: (weight_grad_plain(a, b), bias_grad_plain(a)), rows,
+                          2 * m * segs * n1 * n2, nbytes + 4 * segs * n1,
+                          lambda: time_ms(lambda: (torch.mm(flat.t(), b),
+                                                   torch.sum(a, 0, dtype=torch.float32))))
+        outs = [weight_grad(a, b, want_db=bias) for _ in range(2)]
+        outs = [o if bias else (o,) for o in outs]
+        same = all(torch.equal(x, y) for x, y in zip(*outs))
+        rows[-1]["same_bits_in_two_launches"] = same
+        log(f"  vk_wgrad {use}: two launches give the same bits ({'dW, db' if bias else 'dW'}): "
+            f"{same}")
+        ok &= same
+        del a, b, flat, outs
     for segs, m, k, n, dtype, use in SEG_GEMM_SHAPES:
         a, w = rnd(segs, m, k), rnd(segs * k, n, std=k ** -0.5)
         flat = a.permute(1, 0, 2).reshape(m, segs * k)
@@ -1181,16 +1201,17 @@ def _device_profile(label, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups, total = {}, 0.0
+    groups, total, launches = {}, 0.0, 0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA or evt.key == "Command Buffer Full":
             continue
         us = evt.self_device_time_total
         total += us
+        launches += evt.count
         g = _kernel_group(evt.key)
         groups[g] = groups.get(g, 0.0) + us
     log(f"  profile {label}: wall {wall:.3f} s, device busy {total / 1e6:.3f} s "
-        f"({100 * total / 1e6 / wall:.1f}% of wall)")
+        f"({100 * total / 1e6 / wall:.1f}% of wall), {launches} device launches")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {g:18s} {us / 1e3:10.1f} ms  {100 * us / max(total, 1):5.1f}%")
     attn = sum(us for g, us in groups.items() if g.startswith("K: attention ("))
@@ -1205,7 +1226,8 @@ def _device_profile(label, fn):
     OUT.mkdir(exist_ok=True)
     (OUT / f"profile_{label}.txt").write_text(
         f"{CARD}\n" + prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
-    return dict(wall_s=wall, busy_s=total / 1e6, groups_ms={g: us / 1e3 for g, us in groups.items()})
+    return dict(wall_s=wall, busy_s=total / 1e6, launches=launches,
+                groups_ms={g: us / 1e3 for g, us in groups.items()})
 
 
 def profile_request(engine, cfg, gen):

@@ -12,7 +12,9 @@ max|port - JAX| / max|JAX| per output:
   c = 704 with few rows (``_ff_bwd_wide_kernel``): 5e-3, because the TPU
   kernels use tanh GELU and the port erf; and 1e-4 against ``jax.vjp`` of
   the same chain written with erf GELU in jnp;
-- ``temporal_conv3`` (``_conv3_kernel`` for dx) against ``conv3_vjp``: 1e-4;
+- ``temporal_conv3`` (``_conv3_kernel`` for dx) against ``conv3_vjp``: 1e-4,
+  also with db asked alone or beside one of dx and dW (db comes out of the
+  middle tap's weight-grad launches);
 - ``fused_gn_silu_conv3_emb`` / ``_res`` (recompute + conv VJP) against the
   port's K4 Functions, every input's gradient: 1e-4;
 - ``fused_ln_qkv`` (``_qkv_bwd_kernel``) at c = 64 over one token tile and
@@ -24,7 +26,8 @@ max|port - JAX| / max|JAX| per output:
   the JAX UNet runs it, against the port's K2 + K1 + K3 chain at t = 25 and
   against ``fused_temporal_self_attn_bwd_plain``: dx on the real frames and
   all eight parameter grads, 1e-4;
-- K3's backward against ``jax.vjp`` of ``o @ wo + bo + x``: 1e-4.
+- K3's backward against ``jax.vjp`` of ``o @ wo + bo + x``: 1e-4, also
+  with only the bias trained, or the bias and one other input.
 """
 
 import numpy as np
@@ -133,6 +136,23 @@ def test_temporal_conv3_vjp_matches_jax():
     assert _rel(db.numpy(), ref[2]) <= 1e-4
 
 
+@pytest.mark.parametrize("needs", [(False, False, True), (True, False, True),
+                                   (False, True, True)])
+def test_temporal_conv3_bias_grad_matches_jax(needs):
+    """db taken from the middle tap's weight-grad launches, with dW or
+    without it (then only that tap runs, its dW dropped)."""
+    f32, x, w, b = _conv_data(3)
+    nf = 5
+    gy = f32(10, 8, 24)
+    _, ref = _jax_grads(lambda *a: temporal_conv3(*a, nf), (x, w, b), gy)
+    dx, dw, db = conv3_vjp(torch.from_numpy(x), torch.from_numpy(_torch_w(w)),
+                           torch.from_numpy(gy), nf, needs)
+    assert (dx is not None) == needs[0] and (dw is not None) == needs[1]
+    assert _rel(db.numpy(), ref[2]) <= 1e-4
+    if needs[1]:
+        assert _rel(dw.numpy()[..., 0, 0].transpose(2, 1, 0), ref[1]) <= 1e-4
+
+
 @pytest.mark.parametrize("epilogue", ["emb", "res"])
 def test_gn_silu_conv3_vjp_matches_jax(epilogue):
     f32, x, w, b = _conv_data(2, cout=16)
@@ -222,3 +242,21 @@ def test_linear_residual_backward_matches_jax():
     assert _rel(out, ref_out) <= 1e-4
     for g, r in zip(got, ref):
         assert _rel(g, r) <= 1e-4
+
+
+@pytest.mark.parametrize("trained", [("bo",), ("wo", "bo"), ("o", "bo")])
+def test_linear_residual_bias_grad_matches_jax(trained):
+    """K3's backward asked for the bias gradient with or without dW."""
+    rng = np.random.default_rng(14)
+    f32 = lambda *shape, s=1.0: (rng.standard_normal(shape) * s).astype(np.float32)
+    o, x, cot = f32(3, 40, 96), f32(3, 40, 64), f32(3, 40, 64)
+    wo, bo = f32(96, 64, s=96 ** -0.5), f32(64, s=0.1)
+    _, ref = _jax_grads(lambda o, wo, bo, x: o @ wo + bo + x, (o, wo, bo, x), cot)
+    ref = dict(zip(("o", "wo", "bo", "x"), ref))
+    ts = {k: torch.from_numpy(v).requires_grad_(k in trained)
+          for k, v in (("o", o), ("wo", _lin(wo)), ("bo", bo), ("x", x))}
+    out = linear_residual(ts["o"], ts["wo"], ts["bo"], ts["x"])
+    got = torch.autograd.grad(out, [ts[k] for k in trained], torch.from_numpy(cot))
+    for k, g in zip(trained, got):
+        g = g.numpy().T if k == "wo" else g.numpy()
+        assert _rel(g, ref[k]) <= 1e-4, k

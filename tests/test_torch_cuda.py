@@ -19,15 +19,16 @@ from vista_tpu_torch.ops.attention import (SMALL_KEYS, attention_bwd, attention_
 from vista_tpu_torch.ops.fused_ff import ff_bwd, ff_bwd_dh, ff_bwd_dh_plain, ff_bwd_plain
 from vista_tpu_torch.ops.fused_temporal_attn import (fused_temporal_self_attn,
                                                      fused_temporal_self_attn_bwd_plain)
-from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_bwd,
+from vista_tpu_torch.ops.linear import (bias_grad_plain, linear_residual, linear_residual_bwd,
                                         linear_residual_bwd_plain, linear_residual_plain,
                                         ln_linear, ln_linear_plain, ln_linear_split_bwd,
                                         ln_linear_split_bwd_plain, seg_gemm, seg_gemm_plain,
-                                        weight_grad, weight_grad_plain, wgrad_plan)
+                                        weight_bias_grads, weight_grad, weight_grad_plain,
+                                        wgrad_plan)
 from vista_tpu_torch.ops import norms
 from vista_tpu_torch.ops.norms import (layer_norm_kernel, layer_norm_plain, ln_backward,
                                        ln_bwd_plain, ln_plan)
-from vista_tpu_torch.ops.temporal_conv import (_conv3_weight_grad, conv3, conv3_plain,
+from vista_tpu_torch.ops.temporal_conv import (_conv3_weight_grad, conv3, conv3_plain, conv3_vjp,
                                                fused_gn_silu_conv3_emb, fused_gn_silu_conv3_res,
                                                gn_silu, gn_silu_conv3, gn_silu_conv3_plain,
                                                gn_silu_plain)
@@ -621,6 +622,47 @@ def test_weight_grad_segments(rnd, seg):
     _check(got, weight_grad_plain(a, b))
 
 
+@pytest.mark.parametrize("segs,m,n1,n2", [(1, 129, 96, 64), (1, 4097, 200, 320),
+                                          (1, 300, 320, 1280), (3, 1000, 96, 96),
+                                          (1, 20000, 64, 96), (1, 63, 64, 64),
+                                          (3, 14400, 1280, 1280)])
+def test_weight_grad_with_db(rnd, segs, m, n1, n2):
+    """dW and db from one launch: ragged M (not a multiple of 64), N1 not a
+    multiple of 128, segments, several splits with a ragged last one, and
+    one split (63 tokens; qkv at ds4), where the epilogue writes dW and the
+    side warps db without partials. dW is the same with and without db."""
+    a, b = (rnd(segs, m, n1) if segs > 1 else rnd(m, n1)), rnd(m, n2)
+    splits = wgrad_plan(m, n1, n2, segs)[1]
+    if (m, n1) in ((63, 64), (14400, 1280)):
+        assert splits == 1
+    for dtype in (torch.float32, torch.bfloat16):
+        dw, db = weight_grad(a, b, dtype, want_db=True)
+        assert dw.dtype == dtype and db.dtype == torch.float32 and db.shape == (segs * n1,)
+        _check(dw, weight_grad_plain(a, b))
+        _check(db, bias_grad_plain(a))
+        assert torch.equal(dw, weight_grad(a, b, dtype))
+
+
+def test_bias_grad_without_weight_grad(rnd):
+    """db alone is the same launch with dW dropped: the same bits; and the
+    callers that take it so (K3's backward, conv3's VJP) agree with plain."""
+    a, b = rnd(4097, 320), rnd(4097, 320)
+    dw, db = weight_grad(a, b, want_db=True)
+    none, alone = weight_bias_grads(a, b, torch.float32, False, True)
+    assert none is None and torch.equal(alone, db)
+    w, g = rnd(320, 320, std=320 ** -0.5), rnd(4097, 320)
+    _, _, db3 = linear_residual_bwd(a, w, g, needs=(False, False, True))
+    _check(db3, linear_residual_bwd_plain(*_f32(a, w, g))[2])
+    x, gy = rnd(10, 96, 64), rnd(10, 96, 64)
+    wc = rnd(64, 64, 3, 1, 1, std=192 ** -0.5)
+    dx, dwc, dbc = conv3_vjp(x, wc, gy, 5, needs=(False, False, True))
+    assert dx is None and dwc is None
+    _check(dbc, gy.float().sum((0, 1)))
+    _, dwc_full, dbc_full = conv3_vjp(x, wc, gy, 5)
+    assert torch.equal(dbc, dbc_full)
+    _check(dwc_full, _conv3_weight_grad(x.float().cpu(), gy.float().cpu(), 5, wc.shape).cuda())
+
+
 @pytest.mark.parametrize("segs,m,k,n,dtype", [(3, 1000, 96, 96, torch.float32),
                                               (1, 129, 2560, 320, torch.float32),
                                               (1, 300, 320, 320, torch.bfloat16)])
@@ -636,6 +678,9 @@ def test_split_k_is_deterministic(rnd):
     the same bits."""
     a, b = rnd(20000, 320), rnd(20000, 320)
     assert torch.equal(weight_grad(a, b), weight_grad(a, b))
+    for first, second in zip(*(weight_grad(a, b, torch.bfloat16, want_db=True)
+                               for _ in range(2))):
+        assert torch.equal(first, second)
     x, g = rnd(20000, 320, std=2.0), rnd(3, 20000, 320)
     w = rnd(960, 320, std=320 ** -0.5)
     lw, lb = 1 + rnd(320, std=0.1, dtype=torch.float32), rnd(320, std=0.1, dtype=torch.float32)

@@ -2,7 +2,8 @@
 # A/B of two trees of the PyTorch port on one card, in turns: parent,
 # change, change, parent. Each run is the tree's own `chip_smoke.py
 # --profile`, then tools/torch_ff_bwd_dh_alone.py, tools/torch_attention_alone.py,
-# tools/torch_k4_alone.py and tools/torch_ln_alone.py in the same tree;
+# tools/torch_k4_alone.py, tools/torch_ln_alone.py and tools/torch_wgrad_alone.py
+# in the same tree;
 # after the four runs, the change's card tests and a comparison of the SASS
 # of every kernel that the two libraries share by name (a kernel in one tree
 # only is listed as such).
@@ -54,7 +55,8 @@ for side in parent change change parent; do
    timeout -k 10 120 python3 "$HERE/tools/torch_ff_bwd_dh_alone.py" >> "$log" 2>&1
    timeout -k 10 120 python3 "$HERE/tools/torch_attention_alone.py" >> "$log" 2>&1
    timeout -k 10 120 python3 "$HERE/tools/torch_k4_alone.py" >> "$log" 2>&1
-   timeout -k 10 120 python3 "$HERE/tools/torch_ln_alone.py" >> "$log" 2>&1)
+   timeout -k 10 120 python3 "$HERE/tools/torch_ln_alone.py" >> "$log" 2>&1
+   timeout -k 10 180 python3 "$HERE/tools/torch_wgrad_alone.py" >> "$log" 2>&1)
   rm -rf "$OUT/run${i}_${side}_out"
   mv "$dir/$RESULTS" "$OUT/run${i}_${side}_out" 2>/dev/null
   echo "== run $i $side"

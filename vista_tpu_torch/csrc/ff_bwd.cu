@@ -27,19 +27,26 @@
 //   3. ln_bwd: dx = rstd (dxn*gamma - mean(dxn*gamma) - xhat
 //      mean(dxn*gamma*xhat)) + dy (the residual), dgamma and dbeta, in one
 //      launch (csrc/layer_norm.cu ln_bwd_kernel, the caller launches it);
-//   4. wgrad (weight grads only): dW1 = dH^T xn and dW2 = dy^T hg, the
-//      contraction over all M tokens split into S ranges, each item
-//      writing an fp32 partial (S, N1, N2); TMA + wgmma on the skeleton of
-//      csrc/gemm_tma.cuh, the operands read as stored (both MN-major). The
-//      same launch serves qkv_bwd's dWq/dWk/dWv (segments) and K3's dWo;
-//   5. col_sum: db1 = colsum(dH), db2 = colsum(dy) as per-range partials;
-//   6. sum_splits: adds the partials of 4-5 in a fixed order, in the
-//      weight's dtype. Every reduction is deterministic: no atomics.
+//   4. wgrad: dW1 = dH^T xn with db1 = colsum(dH), and dW2 = dy^T hg with
+//      db2 = colsum(dy), one launch each: the contraction over all M tokens
+//      split into S ranges, TMA + wgmma on the skeleton of csrc/gemm_tma.cuh,
+//      the operands read as stored (both MN-major). The bias gradient is
+//      the column sum of the A operand, which the ring already brings into
+//      shared memory: the products sum it there, against a column of ones
+//      beside B, so no byte of HBM is read for it. With S > 1 the items
+//      write fp32 partials and, after a grid-wide barrier, every block
+//      folds a slice of them in split order in the same launch, into dW in
+//      the weight's dtype and db in fp32; with S = 1 the epilogue writes
+//      them directly. The same launch serves qkv_bwd's dWq/dWk/dWv
+//      (segments), K3's dWo and dbo, and conv3's tap products. Every
+//      reduction is deterministic: no atomics.
 //
 // Bound on the H100: the products (2 * M * c * 8c for [a|g], 2 * M * c * 4c
 // for dhg, 2 * M * 8c * c for dxn, 2 * M * c * 8c + 2 * M * c * 4c for the
 // weight grads) make it tensor-core bound at every UNet width; dH
 // (M x 8c bf16) is the one large intermediate in device memory.
+#include <type_traits>
+
 #include "common.cuh"
 #include "gemm_tma.cuh"
 
@@ -179,25 +186,88 @@ ff_bwd_dh_tma_kernel(__grid_constant__ const CUtensorMap tm_xn,
   }
 }
 
-// 4. part[split] (segs * N1, N2) fp32: row s * N1 + n1 is the sum over the
-// tokens m of the split of A_s[m, n1] B[m, n2]; A (segs, M, N1) and B (M, N2)
-// bf16, token-major. Both operands are MN-major for this product (the
-// output index contiguous), so TMA loads boxes of 64 tokens x 64 columns as
-// the activations are stored and wgmma reads both with the transpose bit
-// set: no thread touches an operand on its way in. An item is one split of
-// one 128 x 320 tile of one segment; the items of a split are adjacent, so
-// the blocks in flight share its token range of B in L2. Splits start on a
-// 64-token box (rows_per_split % 64 == 0): TMA zero-fills only past M, so a
-// box must never reach into the next split.
+// 4. dW (segs * N1, N2): row s * N1 + n1 is the sum over all M tokens of
+// A_s[m, n1] B[m, n2]; A (segs, M, N1) and B (M, N2) bf16, token-major. Both
+// operands are MN-major for this product (the output index contiguous), so
+// TMA loads boxes of 64 tokens x 64 columns as the activations are stored
+// and wgmma reads both with the transpose bit set: no thread touches an
+// operand on its way in. An item is one split of one 128 x 320 tile of one
+// segment; the items of a split are adjacent, so the blocks in flight share
+// its token range of B in L2. Splits start on a 64-token box
+// (rows_per_split % 64 == 0): TMA zero-fills only past M, so a box must
+// never reach into the next split.
+//
+// With db (the instance DB), db[s * N1 + n1] = sum over m of A_s[m, n1]
+// comes out of the same products: each consumer warpgroup's 64-column
+// product (B columns 256..319) is widened to 72 columns, and its last 8
+// columns read, through the descriptor's LBO, a constant 16 x 8 block of
+// bf16 ones behind the ring, so they hold A's column sums over the item's
+// tokens in fp32. The A stage is not read again and no thread loads from
+// shared memory (thread loads of the stages beside the wgmma reads slowed
+// the products far more than their bytes); the products grow by 8 / 320.
+// Items of column tile 0 write db, once per (split, segment, row tile).
+//
+// One split (splits == 1): the epilogue writes dW in its dtype and db, no
+// partial. More: each item writes an fp32 partial row block, part[split] =
+// (dW partial, segs * N1 * N2 | db partial, segs * N1), every block passes a
+// grid-wide barrier after its last item (a cooperative launch), and then
+// the consumer threads of each block fold an equal contiguous slice of the
+// partials: 16-byte loads, WG_FOLD splits in flight, added in split order
+// 0 .. splits - 1 from 0.f, so dW's bits depend on the split plan alone.
+constexpr int WG_FOLD_THREADS = TG_CONSUMER_WARPS * 32;  // the consumer threads fold
+constexpr int WG_FOLD = 8;                               // partials in flight a thread
+constexpr int WG_ONES_BYTES = 2 * 1024;  // the ones block: 16 deep x 8, in two 8-row groups
+// the ring, the ones and the barriers from a 1024-aligned base; the block
+// asks for all the shared memory it may have, which leaves up to 960 bytes
+// of the base's alignment (the kernel checks)
+constexpr int WG_NEED = TG_STAGES * TG_STAGE_BYTES + WG_ONES_BYTES + 16 * TG_STAGES;
+constexpr int WG_SMEM = 232448;
+constexpr int WG_FOLD_BAR = 1;  // named barrier of the folding threads
+static_assert(WG_NEED <= WG_SMEM, "one block an SM");
+
+// TgAcc with its 64-column product widened to 72: b[32..35] are columns
+// 320..327, the column sums (all eight equal).
+struct WgDbAcc {
+  float a[128];  // columns 0..255
+  float b[36];   // columns 256..319, then the sums
+  uint32_t ones;  // shared address of the ones block
+
+  template <bool A_MN, bool B_MN>
+  __device__ __forceinline__ void mma(uint64_t da, uint32_t b_tile, int kk, int acc_in) {
+    static_assert(A_MN && B_MN, "vk_wgrad's operands are MN-major");
+    wgmma_m64n256k16_ss<1, 1>(a, da, tg_desc<true>(b_tile, kk), acc_in);
+    const uint32_t box4 = b_tile + 4 * TG_BOX_BYTES + kk * 2048;  // this slice of box 4
+    wgmma_m64n72k16_ss<1, 1>(b, da, desc_sw128_mn(box4, ones - box4), acc_in);
+  }
+  __device__ __forceinline__ void fence() {
+#pragma unroll
+    for (int e = 0; e < 128; ++e) reg_fence(a[e]);
+#pragma unroll
+    for (int e = 0; e < 36; ++e) reg_fence(b[e]);
+  }
+};
+
+template <bool DB>
 __global__ void __launch_bounds__(TG_THREADS, 1)
 wgrad_tma_kernel(__grid_constant__ const CUtensorMap tm_a,
-                 __grid_constant__ const CUtensorMap tm_b, float* __restrict__ part, int M,
-                 int N1, int N2, int segs, int splits, int rows_per_split) {
+                 __grid_constant__ const CUtensorMap tm_b, float* __restrict__ part,
+                 void* __restrict__ dw, float* __restrict__ db, int* __restrict__ barrier,
+                 int M, int N1, int N2, int segs, int splits, int rows_per_split, int dw_bf16) {
   extern __shared__ uint8_t smem_raw[];
-  TgRing ring = tg_ring(smem_raw);
+  const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
+  if (base - raw > WG_SMEM - WG_NEED) __trap();
+  const uint32_t ones = base + TG_STAGES * TG_STAGE_BYTES;
+  if (DB) {
+    uint32_t* o = reinterpret_cast<uint32_t*>(smem_raw + (ones - raw));
+    for (int i = threadIdx.x; i < WG_ONES_BYTES / 4; i += TG_THREADS) o[i] = 0x3F803F80u;
+    fence_async_smem();  // the wgmma reads them through the async proxy
+  }
+  TgRing ring = tg_ring(smem_raw, TG_STAGE_BYTES, WG_ONES_BYTES);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t1 = (N1 + TG_BM - 1) / TG_BM, t2 = (N2 + TG_BN - 1) / TG_BN;
   const int per_split = segs * t1 * t2, items = splits * per_split;
+  // one split's partial: dW's rows, then db's
+  const long dw_len = (long)segs * N1 * N2, part_len = dw_len + (DB ? segs * N1 : 0);
   // item -> split, segment, row tile, column tile (the column tile fastest)
   auto decode = [&](int item, int& split, int& s, int& n10, int& n20) {
     split = item / per_split;
@@ -237,45 +307,70 @@ wgrad_tma_kernel(__grid_constant__ const CUtensorMap tm_a,
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     const int wg = warp >> 2;
-    TgAcc acc;
+    std::conditional_t<DB, WgDbAcc, TgAcc> acc;
+    if constexpr (DB) acc.ones = ones;
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
       int split, s, n10, n20;
       decode(item, split, s, n10, n20);
       tg_mainloop<true, true>(ring, acc, token_stages(split), wg, lane);
-      float* dst = part + ((size_t)split * segs + s) * N1 * N2;
+      float* dst = part + split * part_len;
       tg_epilogue(acc, wg, warp & 3, lane, [&](int r, int c, float v0, float v1) {
         const int n1 = n10 + r, n2 = n20 + c;
-        if (n1 < N1 && n2 < N2)
-          *reinterpret_cast<float2*>(dst + (size_t)n1 * N2 + n2) = make_float2(v0, v1);
+        if (n1 >= N1 || n2 >= N2) return;
+        const long o = ((long)s * N1 + n1) * N2 + n2;
+        if (splits > 1) {
+          *reinterpret_cast<float2*>(dst + o) = make_float2(v0, v1);
+        } else if (dw_bf16) {  // 0.f + v, as the fold adds one split, then the dtype
+          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dw) + o) = pack_bf16(0.f + v0, 0.f + v1);
+        } else {
+          *reinterpret_cast<float2*>(static_cast<float*>(dw) + o) = make_float2(0.f + v0, 0.f + v1);
+        }
       });
+      if constexpr (DB) {
+        // rows r and r + 8 of the warp's 16, from the lanes of column 320
+        const int r = n10 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+        float* d = (splits > 1 ? dst + dw_len : db) + (long)s * N1;
+        if (n20 == 0 && (lane & 3) == 0) {
+          if (r < N1) d[r] = acc.b[32];
+          if (r + 8 < N1) d[r + 8] = acc.b[34];
+        }
+      }
+    }
+    if (splits == 1) return;
+    bar_named(WG_FOLD_BAR, WG_FOLD_THREADS);  // every partial of this block is written
+    if (threadIdx.x == 0) grid_barrier(barrier);
+    bar_named(WG_FOLD_BAR, WG_FOLD_THREADS);  // ... and every block's
+    // the fold: this block's slice of the partials' 16-byte quads
+    const long quads = part_len / 4, per = (quads + gridDim.x - 1) / gridDim.x;
+    const long q1 = min(quads, (blockIdx.x + 1) * per);
+    const float4* src = reinterpret_cast<const float4*>(part);
+    for (long q = blockIdx.x * per + threadIdx.x; q < q1; q += WG_FOLD_THREADS) {
+      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int k0 = 0; k0 < splits; k0 += WG_FOLD) {
+        float4 v[WG_FOLD];
+#pragma unroll
+        for (int u = 0; u < WG_FOLD; ++u)
+          if (k0 + u < splits) v[u] = __ldcg(src + (k0 + u) * quads + q);
+#pragma unroll
+        for (int u = 0; u < WG_FOLD; ++u) {
+          if (k0 + u >= splits) break;
+          t.x += v[u].x;
+          t.y += v[u].y;
+          t.z += v[u].z;
+          t.w += v[u].w;
+        }
+      }
+      const long e = 4 * q;
+      if (e >= dw_len) {
+        *reinterpret_cast<float4*>(db + (e - dw_len)) = t;
+      } else if (dw_bf16) {
+        *reinterpret_cast<uint2*>(static_cast<bf16*>(dw) + e) =
+            make_uint2(pack_bf16(t.x, t.y), pack_bf16(t.z, t.w));
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(dw) + e) = t;
+      }
     }
   }
-}
-
-// 5. part[s, n] = sum over rows in split s of A[m, n]; one thread per column.
-__global__ void __launch_bounds__(256)
-col_sum_kernel(const bf16* __restrict__ a, float* __restrict__ part, int M,
-               int N, int m_per_split) {
-  const int n = blockIdx.x * 256 + threadIdx.x;
-  if (n >= N) return;
-  const int mbeg = blockIdx.y * m_per_split, mend = min(M, mbeg + m_per_split);
-  float s = 0.f;
-  for (int m = mbeg; m < mend; ++m) s += __bfloat162float(a[(size_t)m * N + n]);
-  part[(size_t)blockIdx.y * N + n] = s;
-}
-
-// 6. out[i] = sum_s part[s, i], in order of s, stored as fp32 or bf16.
-template <typename T>
-__global__ void __launch_bounds__(256)
-sum_splits_kernel(const float* __restrict__ part, T* __restrict__ out, int S, long L) {
-  const long i = (long)blockIdx.x * 256 + threadIdx.x;
-  if (i >= L) return;
-  float s = 0.f;
-  for (int k = 0; k < S; ++k) s += part[(size_t)k * L + i];
-  if constexpr (sizeof(T) == 4)
-    out[i] = s;
-  else
-    out[i] = __float2bfloat16(s);
 }
 
 }  // namespace vk
@@ -325,15 +420,26 @@ extern "C" int vk_ff_bwd_dh(const void* xn, const void* dy, const void* w1, cons
   return (int)cudaGetLastError();
 }
 
-// 4. part (splits, segs * N1, N2) fp32 from a (segs, M, N1), b (M, N2) bf16;
-// splits of rows_per_split tokens (a multiple of 64). N1, N2 % 8 == 0, a and
-// b 16-byte aligned.
-extern "C" int vk_wgrad(const void* a, const void* b, void* part, int M, int N1, int N2,
-                        int segs, int splits, int rows_per_split, void* stream) {
+// 4. dw (segs * N1, N2) in fp32 or bf16 (dw_bf16) from a (segs, M, N1),
+// b (M, N2) bf16, and with db (non-null) db (segs * N1) fp32 = a's column
+// sums; on `grid` persistent blocks (ops/linear.py wgrad_launch), splits of
+// rows_per_split tokens (a multiple of 64). splits > 1 needs `part`
+// (splits, segs * N1 * N2 + (db ? segs * N1 : 0)) fp32 scratch and
+// `barrier`, two ints of the stream (zero before the first launch; each
+// launch leaves them ready for the next), and launches cooperatively: a grid
+// that cannot be resident at once is refused. N1, N2 % 8 == 0; every
+// pointer 16-byte aligned.
+extern "C" int vk_wgrad(const void* a, const void* b, void* part, void* dw, void* db,
+                        void* barrier, int M, int N1, int N2, int segs, int splits,
+                        int rows_per_split, int grid, int dw_bf16, void* stream) {
   using namespace vk;
-  if (M <= 0 || N1 % 8 || N2 % 8 || segs <= 0 || rows_per_split % TG_BK ||
-      (long)splits * rows_per_split < M || (long)(splits - 1) * rows_per_split >= M ||
-      ((uintptr_t)a | (uintptr_t)b) % 16)
+  const long items =
+      (long)splits * segs * ((N1 + TG_BM - 1) / TG_BM) * ((N2 + TG_BN - 1) / TG_BN);
+  if (M <= 0 || N1 <= 0 || N2 <= 0 || N1 % 8 || N2 % 8 || segs <= 0 || splits <= 0 ||
+      rows_per_split % TG_BK || (long)splits * rows_per_split < M ||
+      (long)(splits - 1) * rows_per_split >= M || grid <= 0 || grid > items || !dw ||
+      (splits > 1 && (!part || !barrier)) ||
+      ((uintptr_t)a | (uintptr_t)b | (uintptr_t)part | (uintptr_t)dw | (uintptr_t)db) % 16)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tm_a, tm_b;
   const uint64_t a_dims[3] = {(uint64_t)N1, (uint64_t)M, (uint64_t)segs};
@@ -345,35 +451,20 @@ extern "C" int vk_wgrad(const void* a, const void* b, void* part, int M, int N1,
   if (!make_tmap_bf16(&tm_a, a, 3, a_dims, a_strides, a_box) ||
       !make_tmap_bf16(&tm_b, b, 2, b_dims, b_strides, b_box))
     return (int)cudaErrorInvalidValue;
-  const long items = (long)splits * segs * ((N1 + TG_BM - 1) / TG_BM) * ((N2 + TG_BN - 1) / TG_BN);
-  const int grid = (int)(items < tg_sm_count() ? items : tg_sm_count());
-  if (cudaError_t e = cudaFuncSetAttribute(wgrad_tma_kernel,
-                                            cudaFuncAttributeMaxDynamicSharedMemorySize, TG_SMEM))
+  auto kernel = db ? wgrad_tma_kernel<true> : wgrad_tma_kernel<false>;
+  if (cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM))
     return (int)e;
-  wgrad_tma_kernel<<<grid, TG_THREADS, TG_SMEM, (cudaStream_t)stream>>>(
-      tm_a, tm_b, (float*)part, M, N1, N2, segs, splits, rows_per_split);
-  return (int)cudaGetLastError();
-}
-
-// 5. part (S, N) fp32 from a (M, N) bf16.
-extern "C" int vk_col_sum(const void* a, void* part, int M, int N, int splits,
-                          int m_per_split, void* stream) {
-  dim3 grid((N + 255) / 256, splits);
-  vk::col_sum_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)a, (float*)part, M, N, m_per_split);
-  return (int)cudaGetLastError();
-}
-
-// 6. out (L) = sum over S of part (S, L) fp32, stored as bf16 when out_bf16
-// else fp32.
-extern "C" int vk_sum_splits(const void* part, void* out, int S, long L, int out_bf16,
-                             void* stream) {
-  const unsigned grid = (unsigned)((L + 255) / 256);
-  if (out_bf16)
-    vk::sum_splits_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>((const float*)part,
-                                                                   (bf16*)out, S, L);
-  else
-    vk::sum_splits_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>((const float*)part,
-                                                                   (float*)out, S, L);
-  return (int)cudaGetLastError();
+  float* part_f = static_cast<float*>(part);
+  float* db_f = static_cast<float*>(db);
+  int* bar = static_cast<int*>(barrier);
+  if (splits == 1) {
+    kernel<<<grid, TG_THREADS, WG_SMEM, (cudaStream_t)stream>>>(
+        tm_a, tm_b, part_f, dw, db_f, bar, M, N1, N2, segs, splits, rows_per_split, dw_bf16);
+    return (int)cudaGetLastError();
+  }
+  void* args[] = {&tm_a, &tm_b, &part_f, &dw, &db_f, &bar, &M, &N1,
+                  &N2,   &segs, &splits, &rows_per_split, &dw_bf16};
+  return (int)cudaLaunchCooperativeKernel((const void*)kernel, grid, TG_THREADS, args, WG_SMEM,
+                                          (cudaStream_t)stream);
 }

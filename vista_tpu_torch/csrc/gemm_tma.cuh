@@ -30,7 +30,8 @@
 //     lies outside the output.
 //
 // vk_wgrad and vk_seg_gemm: 4 stages of 56 KB + barriers, 225 KB (dynamic,
-// opt-in). 384 threads, one block per SM. The other kernels choose their
+// opt-in; vk_wgrad 2 KB more, a block of ones for its bias gradient). 384
+// threads, one block per SM. The other kernels choose their
 // own ring depth and stage size and keep the rest of the block's shared
 // memory for their epilogue staging.
 #pragma once
@@ -145,9 +146,10 @@ __device__ __forceinline__ float2 tg_pair(const TgAcc& acc, int p, int i) {
 }
 
 // Hands each accumulator pair to store(row, col, v0, v1): row (0..127) and
-// col (even, 0..318) within the tile, for columns col and col + 1.
-template <class Store>
-__device__ __forceinline__ void tg_epilogue(const TgAcc& acc, int wg, int warp_in_wg, int lane,
+// col (even, 0..318) within the tile, for columns col and col + 1. `acc` is a
+// TgAcc, or an accumulator that begins with TgAcc's a[128] and b[32].
+template <class Acc, class Store>
+__device__ __forceinline__ void tg_epilogue(const Acc& acc, int wg, int warp_in_wg, int lane,
                                             const Store& store) {
   const int row = 64 * wg + 16 * warp_in_wg + (lane >> 2), col = 2 * (lane & 3);
 #pragma unroll

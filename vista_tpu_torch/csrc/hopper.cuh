@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels, as inline
-// PTX: named barriers, mbarriers and a ring of stages under them, TMA tile
+// PTX: named barriers, mbarriers and a ring of stages under them, arrival
+// counters and a grid-wide barrier in device memory, TMA tile
 // loads and stores, wgmma (bf16 -> fp32) with A in registers or shared
 // memory and B in shared memory through matrix descriptors (K-major or
 // MN-major), bulk copies, ldmatrix, and the host-side
@@ -79,6 +80,42 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ---- arrivals across the blocks of a launch (device memory)
+
+// One arrival at `counter`: returns its count before, with acquire-release
+// semantics at device scope.
+__device__ __forceinline__ int arrive(int* counter) {
+  int before;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+               : "=r"(before)
+               : "l"(counter)
+               : "memory");
+  return before;
+}
+
+// One thread of each block calls it, after a barrier of its block: returns
+// once every block of the grid has arrived, with the writes that each
+// block's threads made before their barrier visible. bar[0] counts the
+// arrivals and bar[1] is the barrier's generation; the last block to arrive
+// sets the count back to 0 and moves the generation on, so the pair is
+// ready for the next launch on its stream (launches on one stream are
+// ordered; two streams need two pairs). Every block must be resident at
+// once: a cooperative launch.
+__device__ __forceinline__ void grid_barrier(int* bar) {
+  const int gen = *reinterpret_cast<volatile int*>(bar + 1);  // read before arriving
+  __threadfence();
+  if (arrive(bar) == (int)gridDim.x - 1) {
+    bar[0] = 0;
+    __threadfence();
+    asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(bar + 1), "r"(gen + 1) : "memory");
+    return;
+  }
+  int now;
+  do {
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(now) : "l"(bar + 1) : "memory");
+  } while (now == gen);
 }
 
 // One side's view of a ring of STAGES shared-memory stages of `bytes` each
@@ -264,11 +301,12 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint3
 // (1024-aligned): rows of 64 bf16 along M or N (128 bytes), one row per step
 // of the depth K, as TMA writes a 64 x 64 box of a row-major (K, MN) tensor.
 // SBO is the step between 8-row (8 K) groups, 1024 bytes; LBO the step
-// between 64-wide MN blocks, one 8 KB box. Add 128 (2048 bytes) per 16-deep
-// K slice. (The canonical MN-major layout of CuTe's GMMA atoms,
-// cute/atom/mma_traits_sm90_gmma.hpp.)
-__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(8192 >> 4) << 16) |
+// between 64-wide MN blocks, one 8 KB box by default (any multiple of 16
+// under 256 KB: the next block may lie anywhere after the first). Add 128
+// (2048 bytes) per 16-deep K slice. (The canonical MN-major layout of CuTe's
+// GMMA atoms, cute/atom/mma_traits_sm90_gmma.hpp.)
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr, uint32_t lbo = 8192) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
@@ -326,6 +364,27 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The same with N = 72 (36 fp32 accumulators a thread): columns 64..71 come
+// from the second 64-wide MN block of b (LBO from the first).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n72k16_ss(float (&d)[36], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %38, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35},"
+      " %36, %37, p, 1, 1, %39, %40;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

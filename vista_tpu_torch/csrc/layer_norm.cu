@@ -236,17 +236,6 @@ layer_norm_kernel(const bf16* __restrict__ x, const TW* __restrict__ gamma,
   cp_async_wait<0>();
 }
 
-// One arrival at `counter`: returns its count before, with acquire-release
-// semantics at device scope.
-__device__ __forceinline__ int arrive(int* counter) {
-  int before;
-  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
-               : "=r"(before)
-               : "l"(counter)
-               : "memory");
-  return before;
-}
-
 // Adds column quad q of `n` rows of `quads` float4 in row order, reading
 // through L2 (other blocks of this launch wrote the rows): LN_FOLD rows'
 // loads in flight at once, then their sum, so a group costs one L2 round

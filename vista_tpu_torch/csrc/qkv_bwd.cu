@@ -20,8 +20,8 @@
 // backward of K2 split (ops/linear.py ln_linear_split_bwd) is this GEMM
 // between kernels shared with csrc/ff_bwd.cu: xn recomputed and dx, dgamma,
 // dbeta computed by csrc/layer_norm.cu (vk_layer_norm, vk_ln_bwd), dW =
-// g_i^T xn by the split-K vk_wgrad whose fp32 partials vk_sum_splits adds in
-// a fixed order. Every sum is taken in an order fixed by the launch:
+// g_i^T xn by the split-K vk_wgrad, whose launch also adds its fp32 partials
+// in a fixed order. Every sum is taken in an order fixed by the launch:
 // deterministic.
 //
 // Bound on the H100 (c = inner at every UNet width): dxn is 2 * M * 3c * c

@@ -39,7 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: collections.Counter = collections.Counter()
 SITES: collections.Counter = collections.Counter()
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "vk_attention_short": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "vk_attention_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
@@ -52,9 +52,7 @@ _SIGNATURES = {
     "vk_ff_bwd_dh": [_P] * 7 + [_I] * 4 + [_P],
     "vk_ln_bwd": [_P] * 9 + [_I] * 6 + [_F, _P],
     "vk_ln_occupancy": [_P],
-    "vk_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "vk_col_sum": [_P, _P, _I, _I, _I, _I, _P],
-    "vk_sum_splits": [_P, _P, _I, _L, _I, _P],
+    "vk_wgrad": [_P] * 6 + [_I] * 8 + [_P],
     "vk_seg_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vk_ln_linear": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _P],
     "vk_linear_residual": [_P] * 5 + [_I] * 4 + [_P],
@@ -62,6 +60,12 @@ _SIGNATURES = {
 
 _lib = None
 build_log = ""
+
+# (name, device, stream) -> int32 device scratch that a kernel leaves as it
+# found it (arrival counters, a grid barrier's count and generation): zero
+# when made, one set per stream, since launches on one stream are ordered
+# and two streams would race on one set
+_STREAM_INTS: dict = {}
 
 
 def count(kernel: str, site: str, route: str | None = None) -> None:
@@ -155,6 +159,14 @@ def launch(name: str, *args) -> None:
     rc = getattr(lib(), name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def stream_ints(name: str, n: int, device: torch.device) -> torch.Tensor:
+    """The current stream's ``n`` int32 scratch values called ``name``."""
+    key = (name, device.index, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _STREAM_INTS:
+        _STREAM_INTS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return _STREAM_INTS[key]
 
 
 def ptr(t) -> int | None:

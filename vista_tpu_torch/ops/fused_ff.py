@@ -24,8 +24,8 @@ import torch
 
 from vista_tpu_torch.ops import _build
 from vista_tpu_torch.ops.linear import (ALIGN_SLACK, BOX_BYTES, GEMM_TILE, TOKEN_BOX, GemmPlan,
-                                        column_sum, gelu_erf, linear_residual, ln_linear,
-                                        seg_gemm, weight_grad)
+                                        gelu_erf, linear_residual, ln_linear, seg_gemm,
+                                        weight_bias_grads)
 from vista_tpu_torch.ops.norms import (MAX_C, layer_norm_kernel, layer_norm_plain, ln_backward,
                                        ln_bwd_plain, sm_count)
 
@@ -120,9 +120,9 @@ def ff_bwd(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5, needs=(True,) * 7,
            site: str = "ff"):
     """Gradients of the feed-forward w.r.t. (x, ln_w, ln_b, w1, b1, w2, b2);
     None where ``needs`` is false. CUDA tensors: ``csrc/ff_bwd.cu`` with the
-    helpers of ``ops/linear.py`` (:func:`seg_gemm` for dxn, the split-K weight
-    grads and column sums) and ``ops/norms.py`` (the xn recompute and
-    :func:`ln_backward`)."""
+    helpers of ``ops/linear.py`` (:func:`seg_gemm` for dxn; the split-K weight
+    grads, each launch with its bias gradient) and ``ops/norms.py`` (the xn
+    recompute and :func:`ln_backward`)."""
     if _build.on_cpu(x, dy):
         grads = ff_bwd_plain(x, ln_w, ln_b, w1, b1, w2, dy, eps)
         return tuple(g if need else None for g, need in zip(grads, needs))
@@ -142,15 +142,9 @@ def ff_bwd(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5, needs=(True,) * 7,
     out = [dx, None, None, None, None, None, None]
     if want_ln:
         out[1], out[2] = dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype)
-    dy2 = dy.reshape(m, c)
-    if needs[3]:
-        out[3] = weight_grad(dh, xn.reshape(m, c), dtype=w1.dtype)
-    if needs[4]:
-        out[4] = column_sum(dh).to(b1.dtype)
-    if needs[5]:
-        out[5] = weight_grad(dy2, hg, dtype=w2.dtype)
-    if needs[6]:
-        out[6] = column_sum(dy2)
+    out[3], db1 = weight_bias_grads(dh, xn.reshape(m, c), w1.dtype, needs[3], needs[4])
+    out[4] = db1.to(b1.dtype) if needs[4] else None
+    out[5], out[6] = weight_bias_grads(dy.reshape(m, c), hg, w2.dtype, needs[5], needs[6])
     _build.count("ff_bwd", site)
     return tuple(out)
 

@@ -32,7 +32,7 @@ explicit fp32 formulas:
   (``ln_bwd_kernel``, ``csrc/layer_norm.cu``) and the split-K weight
   gradients of ``csrc/ff_bwd.cu``;
 - K3: :func:`linear_residual_bwd` — da = g W (``csrc/qkv_bwd.cu``), dW =
-  gᵀa, db = colsum(g) (``csrc/ff_bwd.cu``), dresidual = g;
+  gᵀa and db = colsum(g) in one launch (``csrc/ff_bwd.cu``), dresidual = g;
 - K2 ``"geglu"`` has no backward of its own: inside the differentiable
   feed-forward (``ops/fused_ff.py``) the gradient is ``csrc/ff_bwd.cu``,
   and elsewhere a call that would need one raises.
@@ -61,21 +61,12 @@ def gelu_erf(g: torch.Tensor) -> torch.Tensor:
     return 0.5 * g * (1.0 + torch.erf(g * 0.7071067811865476))
 
 
-# ------------------------------------------------------- split-K reductions
+# ------------------------------------------------------- split-K weight grads
 
 GEMM_TILE = (128, 320)  # output tile of vk_wgrad, vk_seg_gemm and K3 (csrc/gemm_tma.cuh)
 TOKEN_BOX = 64  # depth of one ring stage: tokens in vk_wgrad, K in K3 and ff_bwd_dh
 _STAGE_US = 1.0  # one 64-token stage of one tile: the plan's unit of cost
 _HBM_BYTES_PER_US = 3.35e6  # the H100's memory rate, for the partials' cost
-
-
-def _splits(m: int, tiles: int):
-    """Row ranges (a multiple of 32 rows each) for a column-sum reduction:
-    about four blocks per SM over all splits, at least 256 rows per split."""
-    splits = max(1, min(-(-528 // max(tiles, 1)), m // 256))
-    per = -(-m // splits)
-    per = -(-per // 32) * 32
-    return -(-m // per), per
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,15 +143,26 @@ def linear_residual_plan(m: int, k: int, n: int, sms: int = 132) -> GemmPlan:
                     STAGE_BYTES, staging, smem)
 
 
-def sum_splits(part: torch.Tensor, splits: int, shape, dtype=torch.float32):
-    """``part.sum(0)`` in fp32, in order of the split (``vk_sum_splits``),
-    as a new tensor of ``shape`` in ``dtype`` (fp32 or bf16)."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"sum_splits writes fp32 or bf16, not {dtype}")
-    out = torch.empty(shape, dtype=dtype, device=part.device)
-    _build.launch("vk_sum_splits", part.data_ptr(), out.data_ptr(), splits, out.numel(),
-                  int(out.dtype == torch.bfloat16))
-    return out
+class WgradLaunch(NamedTuple):
+    """How ``vk_wgrad`` is launched for a (segs, m, n1) x (m, n2) product:
+    ``splits`` token ranges of ``rows_per_split`` (:func:`wgrad_plan`);
+    ``items`` = splits x segments x row tiles x column tiles, the column
+    tile fastest, taken by ``grid`` persistent blocks; with more than one
+    split, each split's fp32 partial is ``part_len`` floats (dW's
+    ``segs * n1 * n2``, then db's ``segs * n1`` when asked)."""
+    splits: int
+    rows_per_split: int
+    items: int
+    grid: int
+    part_len: int
+
+
+def wgrad_launch(m: int, n1: int, n2: int, segs: int = 1, sms: int = 132,
+                 want_db: bool = False) -> WgradLaunch:
+    _, splits, per = wgrad_plan(m, n1, n2, segs, sms)
+    items = splits * segs * -(-n1 // GEMM_TILE[0]) * -(-n2 // GEMM_TILE[1])
+    return WgradLaunch(splits, per, items, min(items, sms),
+                       segs * n1 * n2 + (segs * n1 if want_db else 0))
 
 
 def weight_grad_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -170,34 +172,51 @@ def weight_grad_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a3.transpose(1, 2) @ b.float()).reshape(-1, b.shape[-1])
 
 
-def weight_grad(a: torch.Tensor, b: torch.Tensor, dtype=torch.float32):
-    """``a^T b`` over all rows, summed in fp32 (``vk_wgrad`` + ``vk_sum_splits``):
-    a (M, N1) or (segs, M, N1), b (M, N2) bf16. With segments, one launch
+def bias_grad_plain(a: torch.Tensor) -> torch.Tensor:
+    """The bias gradient beside :func:`weight_grad_plain`: ``a``'s sum over
+    its M rows in fp32, segments stacked, (segs * N1,)."""
+    return a.float().reshape(-1, *a.shape[-2:]).sum(1).reshape(-1)
+
+
+def weight_grad(a: torch.Tensor, b: torch.Tensor, dtype=torch.float32, want_db: bool = False):
+    """``a^T b`` over all rows, summed in fp32, in one ``vk_wgrad`` launch: a
+    (M, N1) or (segs, M, N1), b (M, N2) bf16. With segments, one launch
     computes every segment's product, stacked as rows (segs * N1, N2). The
-    result is stored as ``dtype`` (fp32 or bf16)."""
+    result is stored as ``dtype`` (fp32 or bf16). With ``want_db`` it
+    returns ``(dW, db)``, db = a's column sums in fp32 (segs * N1,), summed
+    by the same launch's products (a column of ones beside b)."""
     if _build.on_cpu(a, b):
-        return weight_grad_plain(a, b).to(dtype)
+        dw = weight_grad_plain(a, b).to(dtype)
+        return (dw, bias_grad_plain(a)) if want_db else dw
     a3 = a.view(1, *a.shape) if a.dim() == 2 else a
     segs, m, n1 = a3.shape
     n2 = b.shape[-1]
-    if n1 % 8 or n2 % 8:
-        raise ValueError(f"weight_grad needs N1 % 8 == 0 and N2 % 8 == 0: {n1}, {n2}")
+    if n1 % 8 or n2 % 8 or dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"weight_grad needs N1 % 8 == 0, N2 % 8 == 0 and an fp32 or bf16 "
+                         f"result: {n1}, {n2}, {dtype}")
     _build.check(a3, "a", torch.bfloat16)
     _build.check(b, "b", torch.bfloat16, (m, n2))
-    _, splits, per = wgrad_plan(m, n1, n2, segs, sm_count(a.device.index or 0))
-    part = torch.empty(splits, segs * n1, n2, dtype=torch.float32, device=a.device)
-    _build.launch("vk_wgrad", a3.data_ptr(), b.data_ptr(), part.data_ptr(), m, n1, n2, segs,
-                  splits, per)
-    return sum_splits(part, splits, (segs * n1, n2), dtype)
+    plan = wgrad_launch(m, n1, n2, segs, sm_count(a.device.index or 0), want_db)
+    dw = torch.empty(segs * n1, n2, dtype=dtype, device=a.device)
+    db = torch.empty(segs * n1, dtype=torch.float32, device=a.device) if want_db else None
+    part = barrier = None
+    if plan.splits > 1:
+        part = torch.empty(plan.splits, plan.part_len, dtype=torch.float32, device=a.device)
+        barrier = _build.stream_ints("vk_wgrad", 2, a.device)  # the grid barrier's pair
+    _build.launch("vk_wgrad", a3.data_ptr(), b.data_ptr(), _build.ptr(part), dw.data_ptr(),
+                  _build.ptr(db), _build.ptr(barrier), m, n1, n2, segs, plan.splits,
+                  plan.rows_per_split, plan.grid, int(dtype == torch.bfloat16))
+    return (dw, db) if want_db else dw
 
 
-def column_sum(a: torch.Tensor):
-    """``a.sum(0)`` of a (M, N) bf16 in fp32 (``vk_col_sum`` + ``vk_sum_splits``)."""
-    m, n = a.shape
-    splits, per = _splits(m, -(-n // 256))
-    part = torch.empty(splits, n, dtype=torch.float32, device=a.device)
-    _build.launch("vk_col_sum", a.data_ptr(), part.data_ptr(), m, n, splits, per)
-    return sum_splits(part, splits, (n,))
+def weight_bias_grads(a: torch.Tensor, b: torch.Tensor, dtype, need_dw: bool, need_db: bool):
+    """(dW, db) of a layer whose output cotangent is ``a`` and input ``b``,
+    None where not needed: one :func:`weight_grad` launch for both; db
+    without dW comes from the same launch, its dW dropped."""
+    if not need_db:
+        return (weight_grad(a, b, dtype) if need_dw else None), None
+    dw, db = weight_grad(a, b, dtype, want_db=True)
+    return (dw if need_dw else None), db
 
 
 def seg_gemm_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -400,7 +419,7 @@ def linear_residual_bwd_plain(a, w, g):
 
 def linear_residual_bwd(a, w, g, needs=(True,) * 3, site: str = "attn-out"):
     """(da, dW, db) of K3, None where ``needs`` is false. CUDA tensors:
-    ``vk_seg_gemm`` (da, bf16), ``vk_wgrad`` (dW) and ``vk_col_sum`` (db);
+    ``vk_seg_gemm`` (da, bf16) and one ``vk_wgrad`` launch (dW and db);
     CPU tensors: the plain version."""
     if _build.on_cpu(a, g):
         grads = linear_residual_bwd_plain(a, w, g)
@@ -414,10 +433,7 @@ def linear_residual_bwd(a, w, g, needs=(True,) * 3, site: str = "attn-out"):
     out = [None, None, None]
     if needs[0]:
         out[0] = seg_gemm(g2.view(1, m, n), w, torch.bfloat16).view(a.shape)
-    if needs[1]:
-        out[1] = weight_grad(g2, a.view(m, k), dtype=w.dtype)
-    if needs[2]:
-        out[2] = column_sum(g2)
+    out[1], out[2] = weight_bias_grads(g2, a.view(m, k), w.dtype, needs[1], needs[2])
     _build.count("linear_residual_bwd", site)
     return tuple(out)
 

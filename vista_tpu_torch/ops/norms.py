@@ -152,18 +152,6 @@ def layer_norm_kernel(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     return out
 
 
-# (device, stream) -> LN_COUNTERS int32 arrival counters of ln_bwd_kernel's
-# fold, zero between launches: each launch resets the ones it used
-_COUNTERS: dict = {}
-
-
-def _fold_counters(device: torch.device) -> torch.Tensor:
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    if key not in _COUNTERS:
-        _COUNTERS[key] = torch.zeros(LN_COUNTERS, dtype=torch.int32, device=device)
-    return _COUNTERS[key]
-
-
 def ln_backward(x, dxn, ln_w, dres=None, eps=1e-5, want_ln=True, site: str = "ff"):
     """The gradient through ``LN(x)`` of its output's cotangent ``dxn`` (x
     and ``dxn`` of one shape, ``dxn`` fp32 or bf16): dx in x's dtype, plus
@@ -202,7 +190,7 @@ def ln_backward(x, dxn, ln_w, dres=None, eps=1e-5, want_ln=True, site: str = "ff
         part = torch.empty((plan.grid + plan.groups) * 2 * c, dtype=torch.float32,
                            device=x.device)
         dln_w, dln_b = (torch.empty(c, dtype=torch.float32, device=x.device) for _ in range(2))
-        counters = _fold_counters(x.device)
+        counters = _build.stream_ints("ln_bwd", LN_COUNTERS, x.device)
     _build.launch("vk_ln_bwd", x.data_ptr(), dxn.data_ptr(), ln_w.data_ptr(), _build.ptr(dres),
                   dx.data_ptr(), _build.ptr(part), _build.ptr(dln_w), _build.ptr(dln_b),
                   _build.ptr(counters), m, c, plan.lanes, plan.grid,

@@ -30,8 +30,9 @@ is :func:`conv3` of the cotangent with flipped, transposed taps, on the
 same GEMM without an epilogue (replacing ``_conv3_kernel``); the ``res``
 epilogue's ``res_scale`` gradient recomputes y through it. dW is three
 shifted contractions over all tokens, summed in fp32 as the reference asks
-(``weight_grad``: ``vk_wgrad``'s fixed-order fp32 sums); db and demb are
-row sums.
+(``weight_grad``: ``vk_wgrad``'s fixed-order fp32 sums); db comes out of
+the middle tap's launches, whose A operand is each clip's whole cotangent;
+demb is a row sum.
 """
 
 from __future__ import annotations
@@ -264,32 +265,52 @@ def _flipped_taps(w: torch.Tensor) -> torch.Tensor:
     return w.transpose(0, 1).flip(2).contiguous()
 
 
-def _conv3_weight_grad(xn, gy, num_frames, shape):
+def _conv3_weight_grad(xn, gy, num_frames, shape, want_db=False, want_dw=True):
     """dW[:, :, tap] = sum over tokens of gy[f]^T xn[f + tap - 1], in fp32
     (:func:`weight_grad`, per clip and tap on its contiguous rows, the
-    clips' sums added in order)."""
+    clips' sums added in order). With ``want_db`` also db = gy's sum over
+    tokens in fp32, from the middle tap's launches (their A operand is each
+    clip's whole gy), the clips' sums added in order; returns (dW, db), dW
+    None without ``want_dw`` (then only the middle tap runs, its dW
+    dropped)."""
     bt, s, cin = xn.shape
     cout = gy.shape[-1]
     n = num_frames * s
     xv, gv = xn.reshape(-1, n, cin), gy.reshape(-1, n, cout)
     # (gy rows, xn rows) of each tap: tap 0 pairs gy's frames 1.. with xn's ..t-2
     spans = [((s, n), (0, n - s)), ((0, n), (0, n)), ((0, n - s), (s, n))]
-    taps = []
-    for (g0, g1), (x0, x1) in spans:
+    taps, db = [], None
+    for tap, ((g0, g1), (x0, x1)) in enumerate(spans):
+        middle = want_db and tap == 1
+        if not (want_dw or middle):
+            continue
         dw = torch.zeros(cout, cin, dtype=torch.float32, device=xn.device)
         if g1 > g0:
             for c in range(xv.shape[0]):
-                dw += weight_grad(gv[c, g0:g1], xv[c, x0:x1])
+                if middle:
+                    d, b = weight_grad(gv[c], xv[c], want_db=True)
+                    db = b if db is None else db + b
+                else:
+                    d = weight_grad(gv[c, g0:g1], xv[c, x0:x1])
+                if want_dw:
+                    dw += d
         taps.append(dw)
-    return torch.stack(taps, -1).reshape(shape)
+    dw = torch.stack(taps, -1).reshape(shape) if want_dw else None
+    return (dw, db) if want_db else dw
 
 
 def conv3_vjp(x, w, gy, num_frames, needs=(True, True, True), site="dx"):
     """(dx, dw, db) of ``conv3(x, w, b)`` for the cotangent ``gy`` (None
-    where not needed): dx on :func:`conv3` with flipped, transposed taps."""
+    where not needed): dx on :func:`conv3` with flipped, transposed taps;
+    dw and db from the same :func:`weight_grad` launches."""
     dx = conv3(gy, _flipped_taps(w), None, num_frames, site=site) if needs[0] else None
-    dw = _conv3_weight_grad(x, gy, num_frames, w.shape).to(w.dtype) if needs[1] else None
-    db = gy.float().sum((0, 1)) if needs[2] else None
+    dw = db = None
+    if needs[2]:
+        dw, db = _conv3_weight_grad(x, gy, num_frames, w.shape, want_db=True, want_dw=needs[1])
+    elif needs[1]:
+        dw = _conv3_weight_grad(x, gy, num_frames, w.shape)
+    if dw is not None:
+        dw = dw.to(w.dtype)
     return dx, dw, db
 
 
