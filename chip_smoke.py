@@ -20,13 +20,20 @@ Phases, each timed on its own line:
    random weights, answering sampling requests through ``VistaEngine.sample``
    and ``decode_first_stage`` (triangle CFG 2.5, frame 0 pinned, 14/3
    decode), with the launch counts of every kernel;
-5. train: the phase-2 stage-1 recipe (``configs/vista_phase2_stage1.yaml``:
+5. rollout: a small 2-round rollout and 3-member reward with action control
+   on the card in bf16 against the CPU in fp32; then, at full width
+   (576x1024, 25 frames, action control, seeded random weights, non-zero
+   adapters), the sample CLI's ``run`` (``--action traj``, 2 rounds of 10
+   steps, triangle CFG: 47 frames, the files written and checked) and the
+   reward CLI's (``--action traj``, an ensemble of 5 at 10 steps), each with
+   its seconds by stage, peak memory and the launch counts of every kernel;
+6. train: the phase-2 stage-1 recipe (``configs/vista_phase2_stage1.yaml``:
    320x576, 25 frames, batch 1, LoRA + action control, ``lora_only``, remat,
    dynamics loss) at full width with seeded random weights and non-zero
    adapters: a small slice of the step on the card in bf16 against the CPU
    in fp32, three optimizer steps with the launch counts of every kernel,
    and a traced step (device time by kernel group);
-6. phase1: the phase-1 recipe (``configs/vista_phase1.yaml``: 576x1024, 25
+7. phase1: the phase-1 recipe (``configs/vista_phase1.yaml``: 576x1024, 25
    frames, batch 1, no LoRA, every UNet weight trained under
    ``slow_spatial``, remat, dynamics loss, gradient accumulation 2) at full
    width with seeded random weights: two small micro-steps on the card in
@@ -49,6 +56,7 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -113,7 +121,8 @@ KERNELS = {
                  "short route)"),
     "ff_bwd": dict(
         route="cuda", source="vista_tpu_torch/csrc/ff_bwd.cu (ff_bwd_dh; vk_wgrad with db1 / "
-                             "db2 from its side warps and the split fold in the launch) "
+                             "db2 as 8 more columns of its product against a block of ones, "
+                             "and the split fold in the launch) "
                              "with csrc/qkv_bwd.cu (vk_seg_gemm), csrc/gemm_tma.cuh and "
                              "csrc/layer_norm.cu (vk_layer_norm, vk_ln_bwd)",
         replaces="vista_tpu/ops/fused_ff.py:307 (_ff_bwd_kernel); "
@@ -136,8 +145,9 @@ KERNELS = {
                  "vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, LN + q/k/v backward)"),
     "linear_residual_bwd": dict(
         route="cuda", source="vista_tpu_torch/csrc/qkv_bwd.cu (vk_seg_gemm) with "
-                             "csrc/ff_bwd.cu (vk_wgrad: dWo, and dbo from its side warps, "
-                             "the split fold in the launch) and csrc/gemm_tma.cuh",
+                             "csrc/ff_bwd.cu (vk_wgrad: dWo, and dbo as 8 more columns of its "
+                             "product against a block of ones, the split fold in the launch) "
+                             "and csrc/gemm_tma.cuh",
         replaces="vista_tpu/ops/fused_temporal_attn.py:353 (_bwd_kernel, out-projection "
                  "backward: do, dWo, dbo)"),
 }
@@ -149,6 +159,10 @@ PHASE1_KERNELS = TRAIN_KERNELS + ("qkv_bwd", "linear_residual_bwd")
 # training path: wgmma at the spatial sites, short at the temporal ones
 ATTENTION_ROUTES = ("attention:wgmma", "attention:short")
 ATTENTION_BWD_ROUTES = ("attention_bwd:wgmma", "attention_bwd:short")
+# every call site of the sampling kernels, each launched on every sampling path
+SAMPLE_SITES = ("attention/spatial-long", "attention/spatial-short", "attention/temporal",
+                "ln_linear/qkv", "ln_linear/ff", "linear_residual/ff",
+                "gn_silu_conv3/emb", "gn_silu_conv3/res", "gn_silu/emb", "gn_silu/res")
 # the demangled names of each group's device functions, for the profiles
 # (the first group whose prefix matches takes a kernel); vk_wgrad (with the
 # bias gradients and the split-K fold in its launch), seg_gemm and the LN
@@ -1104,22 +1118,24 @@ def run_request(engine, inputs, steps):
 
 def small_cfg(kind="sample"):
     """Widths the kernels take (head_dim 64, c % 64 == 0), fp32. ``kind``:
-    ``"sample"``; ``"phase2"``, LoRA + action control and the phase-2
-    conditioner; ``"phase1"``, neither, ucg dropout on the default keys,
-    remat."""
+    ``"sample"``; ``"rollout"``, sampling with action control;
+    ``"phase2"``, LoRA + action control and the phase-2 conditioner;
+    ``"phase1"``, neither, ucg dropout on the default keys, remat."""
     from vista_tpu_torch.engine.engine import EngineConfig
 
     base = EngineConfig().tiny()
-    adapters = kind == "phase2"
+    lora = kind == "phase2"
+    action = kind in ("rollout", "phase2")
+    sampling = kind in ("sample", "rollout")
     unet = dataclasses.replace(base.unet, model_channels=64, num_head_channels=64,
                                context_dim=64, adm_in_channels=48, num_frames=5,
-                               dtype="float32", add_lora=adapters, action_control=adapters,
-                               remat=kind != "sample")
+                               dtype="float32", add_lora=lora, action_control=action,
+                               remat=not sampling)
     cond = base.conditioner
     cond = dataclasses.replace(
-        cond, vector_outdim=16, action_control=adapters,
-        ucg_rate=0.0 if kind == "sample" else 0.15,
-        ucg_keys=PHASE2_UCG_KEYS if adapters else cond.ucg_keys,
+        cond, vector_outdim=16, action_control=action,
+        ucg_rate=0.0 if sampling else 0.15,
+        ucg_keys=PHASE2_UCG_KEYS if lora else cond.ucg_keys,
         clip=dataclasses.replace(cond.clip, output_dim=64, dtype="float32"),
         vae=dataclasses.replace(cond.vae, ch=32, dtype="float32"))
     return dataclasses.replace(base, unet=unet, num_frames=5, conditioner=cond,
@@ -1136,11 +1152,11 @@ def to_bf16(cfg):
             vae=dataclasses.replace(cond.vae, dtype="bfloat16")))
 
 
-def card_twin(cpu, cfg):
-    """The CPU engine's weights in a bf16 engine on the card."""
+def card_twin(cpu, cfg, device="cuda"):
+    """The CPU engine's weights in a bf16 engine on the card (or ``device``)."""
     from vista_tpu_torch.engine.engine import VistaEngine
 
-    gpu = VistaEngine(to_bf16(cfg), "cuda")
+    gpu = VistaEngine(to_bf16(cfg), device)
     for name in ("unet", "decoder", "encoder", "conditioner"):
         getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
     return gpu
@@ -1293,10 +1309,7 @@ def slice_run(seed, profile=False):
     OUT.mkdir(exist_ok=True)
     (OUT / "slice.json").write_text(json.dumps(dict(card=CARD, requests=results,
                                                     launches=launches), indent=1))
-    missing = missing_launches(SAMPLE_KERNELS + ATTENTION_ROUTES, [
-        "attention/spatial-long", "attention/spatial-short", "attention/temporal",
-        "ln_linear/qkv", "ln_linear/ff", "linear_residual/ff",
-        "gn_silu_conv3/emb", "gn_silu_conv3/res", "gn_silu/emb", "gn_silu/res"])
+    missing = missing_launches(SAMPLE_KERNELS + ATTENTION_ROUTES, SAMPLE_SITES)
     if profile:
         phase("profile", profile_request, engine, cfg, gen)
     if missing:
@@ -1307,6 +1320,255 @@ def slice_run(seed, profile=False):
 
 
 # ---------------------------------------------------------------- phase 5
+
+ROLLOUT_ARGV = ["--action", "traj", "--n_rounds", "2", "--n_steps", "10",
+                "--height", "576", "--width", "1024"]
+REWARD_ARGV = ["--action", "traj", "--n_steps", "10", "--ens_size", "5"]
+
+
+def rollout_inputs(engine, gen, n):
+    """Context frames in [-1, 1], the conditioning scalars with a
+    trajectory, and the draws of ``n`` passes, on the CPU."""
+    from vista_tpu_torch.engine.rollout import draw_rollout_noise
+
+    t = engine.cfg.num_frames
+    images = torch.rand(t, 3, 64, 64, generator=gen) * 2 - 1
+    batch = {"fps_id": torch.full((1,), 9.0), "motion_bucket_id": torch.full((1,), 127.0),
+             "cond_aug": torch.full((1,), 0.02), "trajectory": torch.randn(1, 8, generator=gen)}
+    return images, batch, draw_rollout_noise(engine, images, n, gen)
+
+
+ROLLOUT_TOL = 1e-1  # the small rollout: bf16 alone reads 3.3e-2 / 5.2e-2 (see below)
+
+
+def rollout_reference(seed):
+    """A 2-round rollout (2 steps, triangle CFG) and a 3-member reward (2
+    steps, vanilla CFG) with action control at a small size: on the card in
+    bf16 against the same weights, inputs and draws on the CPU in fp32.
+    Beside it, the same in bf16 on the CPU (the plain versions): bf16 alone
+    reads 3.3e-2 in the latents and 5.2e-2 in the pixels of this path (the
+    encoder's, CLIP's and the UNet's bf16 errors through CFG 2.5 on random
+    weights; the UNet's alone 3.0e-2 / 3.9e-2), past ``SLICE_TOL``, so the
+    card is held to ``ROLLOUT_TOL`` with that error printed beside its own."""
+    from vista_tpu_torch.diffusion.guidance import GuiderConfig
+    from vista_tpu_torch.diffusion.sampler import SamplerConfig
+    from vista_tpu_torch.engine import RolloutConfig, autoregressive_rollout, estimate_reward
+    from vista_tpu_torch.engine.engine import VistaEngine
+
+    cfg = small_cfg("rollout")
+    cpu = VistaEngine(cfg, "cpu")
+    init_engine(cpu, torch.Generator().manual_seed(seed))
+    gpu = card_twin(cpu, cfg)
+    cpu_bf16 = card_twin(cpu, cfg, "cpu")
+    images, batch, draws = rollout_inputs(cpu, torch.Generator().manual_seed(seed + 1), 3)
+    sampler = lambda kind: SamplerConfig(num_steps=2, guider=GuiderConfig(
+        kind=kind, scale=2.5, num_frames=cfg.num_frames))
+    out = {}
+    for name, engine in (("cpu", cpu), ("card", gpu), ("cpu-bf16", cpu_bf16)):
+        dev = engine.device
+        moved = dataclasses.replace(draws, **{f.name: getattr(draws, f.name).to(dev)
+                                              for f in dataclasses.fields(draws)})
+        b = {k: v.to(dev) for k, v in batch.items()}
+        px, lat = autoregressive_rollout(engine, images.to(dev), b, sampler("triangle"),
+                                         RolloutConfig(num_rounds=2), moved)
+        r = estimate_reward(engine, images.to(dev), b, sampler("vanilla"), ensemble_size=3,
+                            draws=moved)
+        out[name] = (lat.cpu().float(), px.cpu().float(), float(r))
+    lat_ref, px_ref, r_ref = out["cpu"]
+    assert lat_ref.shape == (2 * (cfg.num_frames - 3) + 3, 4, 32, 32), lat_ref.shape
+    errs = {}
+    for name in ("card", "cpu-bf16"):
+        lat, px, r = out[name]
+        errs[name] = {"latents": float((lat - lat_ref).abs().max() / lat_ref.abs().max()),
+                      "pixels": float((px - px_ref).abs().max() / px_ref.abs().max()),
+                      "reward": abs(r - r_ref) / r_ref}
+        e = errs[name]
+        log(f"  small rollout (2 rounds) and reward (3 members), {name} vs cpu fp32: latents "
+            f"{e['latents']:.3e}, pixels {e['pixels']:.3e} (max-normalised), reward {r:.6f} "
+            f"vs {r_ref:.6f} (rel {e['reward']:.3e})")
+    log(f"  limit for the card: {ROLLOUT_TOL}")
+    if not all(e <= ROLLOUT_TOL for e in errs["card"].values()):
+        raise SystemExit("the small rollout or reward disagrees with the CPU reference")
+    return errs
+
+
+def video_frames(path):
+    """The frame count of a video the port wrote: the AVI main header's, or
+    imageio's count for an mp4."""
+    path = str(path)
+    if path.endswith(".mp4"):
+        import imageio
+
+        with imageio.get_reader(path) as reader:
+            return reader.count_frames()
+    with open(path, "rb") as f:
+        head = f.read(56)
+    assert head[:4] == b"RIFF" and head[8:12] == b"AVI " and head[24:28] == b"avih", head
+    return int.from_bytes(head[48:52], "little")  # avih's dwTotalFrames
+
+
+class StageTimes:
+    """Host-clock seconds of each call of the named functions, synchronised
+    on the card: the engine's stages (instance attributes in front of its
+    methods) and the CLI module's input and file writers."""
+
+    def __init__(self, targets):
+        self.calls, self.saved = [], []
+        for obj, names in targets:
+            for name in names:
+                self.saved.append((obj, name, vars(obj).get(name)))
+                setattr(obj, name, self._timed(name, getattr(obj, name)))
+
+    def _timed(self, name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append((name, time.perf_counter() - t0, out))
+            return out
+        return call
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+    def close(self):
+        for obj, name, own in self.saved:
+            if own is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, own)
+
+
+ENGINE_STAGES = ("encode_first_stage", "condition_pair", "sample", "decode_first_stage")
+SAMPLE_CLI_HOST = ("context", "save_video_mp4", "save_grid_png", "save_frames_png")
+
+
+def rollout_run(seed):
+    """The rollout and the reward at full width through the CLIs' ``run``,
+    with an action-control engine of seeded random weights (adapters
+    non-zero, so the trajectory reaches the output)."""
+    from vista_tpu_torch.cli import reward as reward_cli
+    from vista_tpu_torch.cli import sample as sample_cli
+    from vista_tpu_torch.cli._common import engine_config
+    from vista_tpu_torch.engine.engine import VistaEngine
+    from vista_tpu_torch.ops import _build
+
+    small = phase("rollout-reference", rollout_reference, seed)
+    save = OUT / "rollout_files"
+    s_args = sample_cli.parse_args(ROLLOUT_ARGV + ["--save", str(save)])
+    r_args = reward_cli.parse_args(REWARD_ARGV)
+    cfg = engine_config(s_args)
+    assert engine_config(r_args) == cfg
+    t0 = time.perf_counter()
+    engine = VistaEngine(cfg, s_args.device)
+    init_engine(engine, torch.Generator(device=engine.device).manual_seed(seed + 11))
+    n_unet = sum(p.numel() for p in engine.unet.parameters())
+    log(f"  action-control engine: VideoUNet {n_unet / 1e9:.3f} B params, CLIP ViT-H, VAE "
+        f"encoder and temporal decoder, {cfg.unet.dtype}, seeded random weights "
+        f"({time.perf_counter() - t0:.1f} s)")
+    times = StageTimes([(engine, ENGINE_STAGES), (sample_cli, SAMPLE_CLI_HOST)])
+    result = {"card": CARD, "small": small}
+
+    # the sample CLI: 2 rounds of 10 steps, triangle CFG, files written
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    out = sample_cli.run(s_args, engine)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches, sites = dict(_build.LAUNCHES), dict(_build.SITES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    calls = times.take()
+    lat, px, t = out["latents"], out["pixels"], cfg.num_frames
+    n, f = s_args.n_rounds * (t - 3) + 3, cfg.vae.downsample_factor
+    h, w = s_args.height, s_args.width
+    assert lat.shape == (n, 4, h // f, w // f), lat.shape
+    assert px.shape == (n, 3, h, w), px.shape
+    assert bool(torch.isfinite(lat).all()) and bool(torch.isfinite(px).all()), "non-finite"
+    assert 0.0 <= float(px.min()) and float(px.max()) <= 1.0, "pixels outside [0, 1]"
+    context = [o for name, _, o in calls if name == "encode_first_stage"][0]
+    assert torch.equal(lat[0], context[0].float()), "round 1's frame 0 is not the context latent"
+    files = {"video": video_frames(out["paths"]["video"]),
+             "real": video_frames(out["paths"]["real"]), "frames": len(out["paths"]["frames"])}
+    assert files == {"video": n, "real": t, "frames": n}, files
+    written = sorted(p for p in save.rglob("*") if p.is_file())
+    assert Path(out["paths"]["grid"]) in written and all(Path(p) in written for p in
+                                                         out["paths"]["frames"])
+    sizes = {str(p.relative_to(save)): p.stat().st_size for p in written}
+    secs = lambda name: [s for k, s, _ in calls if k == name]
+    rounds = [dict(sample_s=s, decode_s=d) for s, d in zip(secs("sample"),
+                                                           secs("decode_first_stage"))]
+    cond_s = secs("condition_pair")
+    rounds[0]["condition_s"] = secs("encode_first_stage")[0] + cond_s[0]
+    for i, r in enumerate(rounds[1:], 1):
+        r["condition_s"] = cond_s[i]
+    for r in rounds:
+        r["seconds"] = r["sample_s"] + r["decode_s"] + r["condition_s"]
+    engine_s = sum(s for k, s, _ in calls if k in ENGINE_STAGES)
+    inputs_s = sum(secs("context"))
+    files_s = sum(s for k, s, _ in calls if k.startswith("save_"))
+    result["rollout"] = dict(
+        argv=ROLLOUT_ARGV, seconds=total, engine_s=engine_s, inputs_s=inputs_s,
+        files_s=files_s, other_host_s=total - engine_s - inputs_s - files_s,
+        rounds=rounds, peak_gib=peak, frames=n, files=files, file_bytes=sizes,
+        launches=sites, pixels_mean=float(px.mean()), pixels_std=float(px.std()))
+    for i, r in enumerate(rounds):
+        log(f"  rollout round {i + 1}: {r['seconds']:.3f} s (sample {r['sample_s']:.3f} s = "
+            f"{r['sample_s'] / s_args.n_steps:.3f} s/step, decode {r['decode_s']:.3f} s, "
+            f"encode + conditioning {r['condition_s']:.3f} s)")
+    log(f"  rollout: {s_args.n_rounds} rounds, {n} frames at {h}x{w}: {total:.3f} s through the "
+        f"CLI: {engine_s:.3f} s in the engine, on the host {inputs_s:.3f} s making the context "
+        f"frames, {files_s:.3f} s writing files, {total - engine_s - inputs_s - files_s:.3f} s "
+        f"else (copies); peak {peak:.2f} GiB; pixels mean {px.mean().item():.4f} std "
+        f"{px.std().item():.4f}; files {json.dumps(files)}")
+    log(f"    launches by site: {json.dumps(sites, sort_keys=True)}")
+    missing = missing_launches(SAMPLE_KERNELS + ATTENTION_ROUTES, SAMPLE_SITES)
+    if missing:
+        raise SystemExit(f"kernels or call sites never launched on the rollout path: {missing}")
+    shutil.rmtree(save)  # the media of random weights: over 100 MB, not worth keeping
+    del out, lat, px, context, calls
+
+    # the reward CLI: an ensemble of 5 at 10 steps, vanilla CFG
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    res = reward_cli.run(r_args, engine)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    reward_launches, r_sites = dict(_build.LAUNCHES), dict(_build.SITES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    calls = times.take()
+    times.close()
+    reward = res["reward"]
+    assert math.isfinite(reward) and 0.0 < reward <= 1.0, reward
+    members = [s for k, s, _ in calls if k == "sample"]
+    assert len(members) == r_args.ens_size, len(members)
+    cond = sum(s for k, s, _ in calls if k in ("encode_first_stage", "condition_pair"))
+    host = total - sum(s for _, s, _ in calls)
+    result["reward"] = dict(argv=REWARD_ARGV, reward=reward, seconds=total,
+                            member_s=members, condition_s=cond, host_s=host, peak_gib=peak,
+                            launches=r_sites)
+    log(f"  reward: {reward:.6f} from {r_args.ens_size} members at {r_args.n_steps} steps: "
+        f"{total:.3f} s through the CLI ({sum(members) / len(members):.3f} s a member, "
+        f"encode + conditioning {cond:.3f} s, host {host:.3f} s: the context frames, copies), "
+        f"peak {peak:.2f} GiB")
+    log(f"    launches by site: {json.dumps(r_sites, sort_keys=True)}")
+    missing = missing_launches(SAMPLE_KERNELS + ATTENTION_ROUTES, SAMPLE_SITES)
+    if missing:
+        raise SystemExit(f"kernels or call sites never launched on the reward path: {missing}")
+    OUT.mkdir(exist_ok=True)
+    (OUT / "rollout.json").write_text(json.dumps(result, indent=1))
+    del engine, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rollout": launches, "reward": reward_launches}
+
+
+# ---------------------------------------------------------------- phase 6
 
 PHASE2_UCG_KEYS = ("cond_frames_without_noise", "cond_frames", "command", "trajectory",
                    "speed", "angle", "goal")
@@ -1464,7 +1726,7 @@ def train_run(seed):
     return launches
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 7
 
 PHASE1_MICRO_STEPS = 4  # two optimizer steps at accum_steps = 2
 
@@ -1758,22 +2020,24 @@ def main():
     log("kernel vs plain (fp32 on the same bf16 inputs):")
     rows = phase("kernels", kernel_checks)
     sample = phase("slice", slice_run, args.seed, args.profile)
+    rollout = phase("rollout", rollout_run, args.seed)
     train = phase("train", train_run, args.seed)
     gc.collect()  # the phase-2 engine and trainer, before the phase-1 ones
     torch.cuda.empty_cache()
     phase1 = phase("phase1", phase1_run, args.seed)
 
     kernels = []
+    paths = {"sample": sample, "rollout": rollout["rollout"], "reward": rollout["reward"],
+             "train": train, "phase1": phase1}
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         timed = mine[0]  # the first (largest) main-path shape of the kernel
-        by_path = {"sample": sample.get(name, 0), "train": train.get(name, 0),
-                   "phase1": phase1.get(name, 0)}
+        by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
         path = ("sample" if name in SAMPLE_KERNELS else
                 "train" if name in TRAIN_KERNELS else "phase1")
-        routes = {key.split(":")[1]: {"sample": sample.get(key, 0), "train": train.get(key, 0),
-                                      "phase1": phase1.get(key, 0)}
-                  for key in sorted({*sample, *train, *phase1}) if key.startswith(name + ":")}
+        routes = {key.split(":")[1]: {p: counts.get(key, 0) for p, counts in paths.items()}
+                  for key in sorted(set().union(*paths.values()))
+                  if key.startswith(name + ":")}
         kernels.append(dict(
             name=name, **meta, launches=by_path[path],
             launches_by_path=by_path, launches_by_route=routes or None,

@@ -29,6 +29,7 @@ from vista_tpu.diffusion import guidance as jguidance
 from vista_tpu.diffusion import loss as jloss
 from vista_tpu.diffusion import sampler as jsampler
 from vista_tpu.engine import engine as jengine
+from vista_tpu.engine import rollout as jrollout
 from vista_tpu.engine import training as jtraining
 from vista_tpu.models import clip as jclip
 from vista_tpu.models import conditioner as jconditioner
@@ -36,7 +37,7 @@ from vista_tpu.models import unet as junet
 from vista_tpu.models import vae as jvae
 from vista_tpu.utils import torch_import as ti
 from vista_tpu_torch.diffusion import guidance, loss, sampler
-from vista_tpu_torch.engine import engine, training
+from vista_tpu_torch.engine import engine, rollout, training
 from vista_tpu_torch.models import conditioner
 from vista_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionTower
 from vista_tpu_torch.models.unet import VideoUNet, VideoUNetConfig
@@ -188,6 +189,7 @@ UNET_TPU_ONLY = {"attn_backend", "remat_max_ds", "remat_policy"}
     (conditioner.ConditionerConfig, jconditioner.ConditionerConfig, set()),
     (training.TrainConfig, jtraining.TrainConfig, set()),
     (loss.LossConfig, jloss.LossConfig, set()),
+    (rollout.RolloutConfig, jrollout.RolloutConfig, set()),
 ])
 def test_config_defaults_match_jax(port_cls, jax_cls, tpu_only):
     port, ref = _defaults(port_cls), _defaults(jax_cls)

@@ -60,7 +60,7 @@ for side in parent change change parent; do
   rm -rf "$OUT/run${i}_${side}_out"
   mv "$dir/$RESULTS" "$OUT/run${i}_${side}_out" 2>/dev/null
   echo "== run $i $side"
-  grep -E "^phase |request 2|phase 1 at|train: |rc=|ALONE" "$log"
+  grep -E "^phase |request 2|rollout round|  rollout: |  reward: |phase 1 at|train: |rc=|ALONE" "$log"
 done
 (cd "$CHANGE" && timeout 300 python3 -m pytest tests/test_torch_cuda.py -q --noconftest \
    -p no:cacheprovider 2>&1 | tail -3) | tee "$OUT/card_tests.txt"

@@ -8,7 +8,8 @@ package ties the two). Latents are ``(n, z, h, w)`` (NCHW, frame-major).
 - ``encode_first_stage``: pixels -> scaled latents, in chunks of
   ``encode_chunk`` frames, sampling the posterior with given noise or taking
   its mode;
-- ``conditions``: the conditioner on a typed batch;
+- ``conditions``: the conditioner on a typed batch; ``condition_pair``: the
+  (c, uc) pair sampling takes, uc with ``UC_ZERO_KEYS`` zeroed;
 - ``decode_first_stage``: windows of ``decode_chunk`` frames sharing
   ``decode_overlap`` frames, the seams averaged, one window after the other;
 - ``sample``: one sampling pass (Euler-EDM).
@@ -20,7 +21,7 @@ on ``"cuda"`` without one raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, FrozenSet, Mapping, Optional
+from typing import Dict, FrozenSet, Mapping, Optional, Tuple
 
 import torch
 
@@ -31,6 +32,11 @@ from vista_tpu_torch.models.conditioner import ConditionerConfig, GeneralConditi
 from vista_tpu_torch.models.unet import VideoUNet, VideoUNetConfig
 from vista_tpu_torch.models.vae import (VAEConfig, VAEEncoder, VideoVAEDecoder,
                                         gaussian_mode, gaussian_sample)
+
+# the conditions the unconditional half of classifier-free guidance zeroes
+UC_ZERO_KEYS: FrozenSet[str] = frozenset(
+    {"cond_frames", "cond_frames_without_noise",
+     "command", "trajectory", "speed", "angle", "goal"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +105,16 @@ class VistaEngine:
         """``{"crossattn", "vector", "concat"}`` for a typed batch (see
         :class:`GeneralConditioner`)."""
         return self.conditioner(batch, self.encoder, force_zero, skip_encode, ucg_keep)
+
+    @torch.no_grad()
+    def condition_pair(self, batch: Mapping[str, torch.Tensor],
+                       force_uc_zero: FrozenSet[str] = UC_ZERO_KEYS,
+                       skip_encode: bool = False
+                       ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """``(c, uc)`` for sampling: the conditioner on ``batch`` with nothing
+        forced to zero, and with the ``force_uc_zero`` keys zeroed."""
+        return (self.conditions(batch, frozenset(), skip_encode),
+                self.conditions(batch, force_uc_zero, skip_encode))
 
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
