@@ -33,7 +33,16 @@ Phases, each timed on its own line:
    adapters: a small slice of the step on the card in bf16 against the CPU
    in fp32, three optimizer steps with the launch counts of every kernel,
    and a traced step (device time by kernel group);
-7. phase1: the phase-1 recipe (``configs/vista_phase1.yaml``: 576x1024, 25
+7. train_cli: the phase-2 stage-2 recipe (``configs/vista_phase2_stage2.yaml``:
+   576x1024, 25 frames, batch 1, LoRA + action control, ``lora_only``, remat,
+   dynamics loss, the recipe's 1000-step warm-up) through the train CLI's
+   ``main``, from JPEG clips it writes in both layouts the recipe mixes
+   (OpenDV folders and nuScenes annotations), with the modules' own
+   initialisation: three steps with a validation and image logs, then
+   ``--resume`` for a fourth; the CSV, the images, frozen tensors
+   bit-identical, adapters and EMA moved, the restored state bit-identical
+   to the saved one, and the launch counts;
+8. phase1: the phase-1 recipe (``configs/vista_phase1.yaml``: 576x1024, 25
    frames, batch 1, no LoRA, every UNet weight trained under
    ``slow_spatial``, remat, dynamics loss, gradient accumulation 2) at full
    width with seeded random weights: two small micro-steps on the card in
@@ -1339,6 +1348,8 @@ def rollout_inputs(engine, gen, n):
 
 
 ROLLOUT_TOL = 1e-1  # the small rollout: bf16 alone reads 3.3e-2 / 5.2e-2 (see below)
+ROLLOUT_BF16_RATIO = 1.5  # the card's latents and pixels against bf16-on-the-CPU's own error
+REWARD_TOL = 1e-2  # |card - cpu| of the reward, absolute (bf16 alone reads 1.7e-4 relative)
 
 
 def rollout_reference(seed):
@@ -1348,8 +1359,10 @@ def rollout_reference(seed):
     Beside it, the same in bf16 on the CPU (the plain versions): bf16 alone
     reads 3.3e-2 in the latents and 5.2e-2 in the pixels of this path (the
     encoder's, CLIP's and the UNet's bf16 errors through CFG 2.5 on random
-    weights; the UNet's alone 3.0e-2 / 3.9e-2), past ``SLICE_TOL``, so the
-    card is held to ``ROLLOUT_TOL`` with that error printed beside its own."""
+    weights; the UNet's alone 3.0e-2 / 3.9e-2), past ``SLICE_TOL``. So the
+    card's latents and pixels are held to ``ROLLOUT_BF16_RATIO`` times the
+    same run's bf16-on-the-CPU error and to ``ROLLOUT_TOL``, and the reward
+    to ``REWARD_TOL`` absolute."""
     from vista_tpu_torch.diffusion.guidance import GuiderConfig
     from vista_tpu_torch.diffusion.sampler import SamplerConfig
     from vista_tpu_torch.engine import RolloutConfig, autoregressive_rollout, estimate_reward
@@ -1381,13 +1394,20 @@ def rollout_reference(seed):
         lat, px, r = out[name]
         errs[name] = {"latents": float((lat - lat_ref).abs().max() / lat_ref.abs().max()),
                       "pixels": float((px - px_ref).abs().max() / px_ref.abs().max()),
-                      "reward": abs(r - r_ref) / r_ref}
+                      "reward": abs(r - r_ref) / r_ref, "reward_abs": abs(r - r_ref)}
         e = errs[name]
         log(f"  small rollout (2 rounds) and reward (3 members), {name} vs cpu fp32: latents "
             f"{e['latents']:.3e}, pixels {e['pixels']:.3e} (max-normalised), reward {r:.6f} "
-            f"vs {r_ref:.6f} (rel {e['reward']:.3e})")
-    log(f"  limit for the card: {ROLLOUT_TOL}")
-    if not all(e <= ROLLOUT_TOL for e in errs["card"].values()):
+            f"vs {r_ref:.6f} (abs {e['reward_abs']:.3e}, rel {e['reward']:.3e})")
+    card, bf16 = errs["card"], errs["cpu-bf16"]
+    ratios = {k: card[k] / bf16[k] for k in ("latents", "pixels")}
+    errs["ratios"] = ratios
+    log(f"  card / bf16-on-the-CPU: latents {ratios['latents']:.3f}, pixels "
+        f"{ratios['pixels']:.3f} (limit {ROLLOUT_BF16_RATIO}, and {ROLLOUT_TOL} absolute); "
+        f"reward abs {card['reward_abs']:.3e} (limit {REWARD_TOL})")
+    if not (all(r <= ROLLOUT_BF16_RATIO for r in ratios.values())
+            and card["latents"] <= ROLLOUT_TOL and card["pixels"] <= ROLLOUT_TOL
+            and card["reward_abs"] <= REWARD_TOL):
         raise SystemExit("the small rollout or reward disagrees with the CPU reference")
     return errs
 
@@ -1576,24 +1596,22 @@ TRAIN_TOL = 5e-2  # small train slice, bf16 on the card vs fp32 on the CPU
 TRAIN_STEPS = 3
 
 
+CONFIGS = Path(__file__).resolve().parent / "configs"
+
+
+def recipe(name):
+    """The engine and the train recipe of a shipped config, through the
+    port's loader."""
+    from vista_tpu_torch.config import load_config
+    from vista_tpu_torch.runner import ExperimentConfig
+
+    exp = load_config(ExperimentConfig, [str(CONFIGS / name)])
+    return exp.engine, exp.train
+
+
 def phase2_cfg():
     """configs/vista_phase2_stage1.yaml: the engine and the train recipe."""
-    from vista_tpu_torch.diffusion.loss import LossConfig
-    from vista_tpu_torch.engine.engine import EngineConfig
-    from vista_tpu_torch.engine.training import TrainConfig
-
-    base = EngineConfig()
-    cfg = dataclasses.replace(
-        base, unet=dataclasses.replace(base.unet, add_lora=True, action_control=True,
-                                       remat=True),
-        conditioner=dataclasses.replace(base.conditioner, action_control=True, ucg_rate=0.15,
-                                        ucg_keys=PHASE2_UCG_KEYS))
-    train = TrainConfig(learning_rate=5e-5, warmup_steps=1000, grad_clip=0.3,
-                        policy="lora_only", ema_decay=0.9999,
-                        loss=LossConfig(num_frames=25, sigma_p_mean=1.0, sigma_p_std=1.6,
-                                        weighting="v", use_additional_loss=True,
-                                        additional_loss_weight=0.1, replace_cond_frames=True))
-    return cfg, train
+    return recipe("vista_phase2_stage1.yaml")
 
 
 def train_batch(h, w, frames, gen, device):
@@ -1728,27 +1746,300 @@ def train_run(seed):
 
 # ---------------------------------------------------------------- phase 7
 
+# the train CLI's run: three steps, then one more after the resume
+TRAIN_CLI_CONFIG = "vista_phase2_stage2.yaml"
+TRAIN_CLI_ARGS = ["run.max_steps=3", "run.log_every=1", "run.val_every=3", "run.val_batches=1",
+                  "run.image_log_steps=5", "run.ckpt_every=1000000",
+                  "data.samples_per_epoch=64"]
+TRAIN_CLI_IMAGE_STEPS = (1, 2, 4)  # the powers of two under image_log_every (1000)
+# the sampling call sites of an image log: the UNet of phase 2 has LoRA, whose
+# self-attentions take layer_norm and the attention route, not ln_linear/qkv
+LORA_SAMPLE_SITES = tuple(s for s in SAMPLE_SITES if s != "ln_linear/qkv") + (
+    "layer_norm/spatial-long", "layer_norm/spatial-short", "layer_norm/temporal")
+TRAIN_SITES = (
+    "layer_norm/spatial-long", "layer_norm/spatial-short", "layer_norm/temporal",
+    "ln_bwd/spatial-long", "ln_bwd/spatial-short", "ln_bwd/temporal", "ln_bwd/ff-bwd",
+    "attention/spatial-long", "attention/spatial-short", "attention/temporal",
+    "attention_bwd/spatial-long", "attention_bwd/spatial-short", "attention_bwd/temporal",
+    "ln_linear/ff", "linear_residual/ff", "ff_bwd/ff", "gn_silu_conv3/emb",
+    "gn_silu_conv3/res", "gn_silu/emb", "gn_silu/res", "conv3/emb-dx", "conv3/res-dx")
+
+
+def write_clips(root, seed):
+    """A small on-disk dataset in both layouts of the phase-2 recipe, made
+    with PIL from the seed: 2 OpenDV-style folders of 25 zero-padded JPEG
+    frames at 1280x960 (4:3, so the crop to 16:9 runs), and 25 JPEG frames
+    at the nuScenes camera's 1600x900 shared by 4 annotations (trajectory,
+    command, speed, angle, goal with z; the last one's goal invalid). Returns
+    the overlay config that points the recipe's sources at them."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+
+    def frame(w, h, path):
+        base = rng.randint(0, 256, (h // 16, w // 16, 3), np.uint8)
+        Image.fromarray(base).resize((w, h), Image.BILINEAR).save(path, quality=90)
+
+    opendv, nusc = root / "opendv", root / "nuscenes"
+    for v in range(2):
+        (opendv / f"video{v}").mkdir(parents=True)
+        for i in range(25):
+            frame(1280, 960, opendv / f"video{v}" / f"{i:09d}.jpg")
+    (nusc / "CAM_FRONT").mkdir(parents=True)
+    rel = [f"CAM_FRONT/{i:03d}.jpg" for i in range(25)]
+    for r in rel:
+        frame(1600, 900, nusc / r)
+    annos = [dict(frames=rel, traj=rng.randn(10).tolist(), cmd=int(i % 4),
+                  speed=(5 + rng.rand(5)).tolist(), angle=(100 * rng.randn(5)).tolist(),
+                  goal=[float(rng.randint(1, 1600)), float(rng.randint(1, 900))],
+                  z=(1.0 if i < 3 else -1.0)) for i in range(4)]
+    (root / "opendv.json").write_text(json.dumps(
+        [{"folder": f"video{v}", "first_frame": 0} for v in range(2)]))
+    (root / "nuscenes.json").write_text(json.dumps(annos))
+    overlay = {"data": {"sources": [
+        {"kind": "youtube", "prob": 1.0, "anno_file": str(root / "opendv.json"),
+         "data_root": str(opendv)},
+        {"kind": "nuscenes", "prob": 1.0, "anno_file": str(root / "nuscenes.json"),
+         "data_root": str(nusc)}]}}
+    path = root / "overlay.yaml"
+    path.write_text(json.dumps(overlay))  # JSON text is YAML
+    return path
+
+
+# Adam's second moment past which a tensor's gradient sets its update
+# (sqrt(nu) >> eps = 1e-8): the LoRA down-projections' gradients scale with
+# the up-projections, which start at zero, and read about 1e-13 (nu 1e-26)
+# over the first updates, so their masters do not move yet
+ADAM_NU_FLOOR = 1e-12
+
+
+def runner_sums(runner):
+    """Bit hashes (``checksums``) of a runner's state: every frozen tensor
+    (the UNet's base, the encoder, the decoder, the conditioner) and each
+    group of the trainer's state, plus its two counts."""
+    trainer = runner.trainer
+    frozen = [t for name, module in runner._modules().items()
+              for n, t in module.state_dict().items()
+              if not (name == "unet" and n in trainer.params)]
+    state = trainer.state_dict()
+    out = {"frozen": checksums(frozen), "step": state["step"], "updates": state["updates"]}
+    for group in ("master", "mu", "nu", "ema", "acc"):
+        out[group] = checksums(state[group].values()) if state[group] else torch.zeros(0)
+    # a gradient past Adam's eps: its update is about lr x schedule an element
+    out["with_grad"] = torch.stack([n.max() > ADAM_NU_FLOOR for n in state["nu"].values()]).cpu()
+    return out
+
+
+def train_cli_run(seed):
+    """The phase-2 stage-2 recipe (configs/vista_phase2_stage2.yaml: LoRA +
+    action control at 576x1024, 25 frames, batch 1, remat, dynamics loss,
+    the recipe's warm-up) through ``vista_tpu_torch.cli.train.main`` from
+    JPEG clips on disk and the modules' own initialisation: three steps with
+    validation and image logs, then ``--resume`` for a fourth."""
+    import csv
+    import tempfile
+
+    from vista_tpu_torch import runner as runner_mod
+    from vista_tpu_torch.cli import train as train_cli
+    from vista_tpu_torch.data import native
+    from vista_tpu_torch.ops import _build
+
+    tmp = Path(tempfile.mkdtemp(prefix="vista_train_cli_"))
+    Runner = runner_mod.Runner
+    from vista_tpu_torch.engine.engine import VistaEngine
+
+    # the image logs split: sampling, decodes and the files written
+    times = StageTimes([(Runner, ("validate", "save_checkpoint", "resume")),
+                        (VistaEngine, ("sample", "decode_first_stage")),
+                        (runner_mod, ("save_video_mp4", "save_grid_png"))])
+    fit, log_images = Runner.fit, Runner.log_images
+    runs, image_sites, image_s, failures = [], [], [], []
+
+    def probed_fit(self):
+        runs.append({"start": runner_sums(self)})
+        out = fit(self)
+        runs[-1].update(end=runner_sums(self), step_times=list(self.step_times),
+                        step=self.trainer.step)
+        return out
+
+    def probed_log_images(self, batch):
+        before = dict(_build.SITES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            log_images(self, batch)
+        except Exception as e:  # the runner prints it and trains on; the phase fails
+            failures.append((self.trainer.step, repr(e)))
+            raise
+        torch.cuda.synchronize()
+        image_sites.append({k: v - before.get(k, 0) for k, v in _build.SITES.items()})
+        image_s.append(time.perf_counter() - t0)
+
+    try:
+        t0 = time.perf_counter()
+        n_frames = recipe(TRAIN_CLI_CONFIG)[0].num_frames
+        overlay = write_clips(tmp, seed)
+        write_s = time.perf_counter() - t0
+        logdir = tmp / "run"
+        # the overrides first: ``--base`` takes every path after it
+        overrides = [f"run.logdir={logdir}", *TRAIN_CLI_ARGS]
+        base = ["--base", str(CONFIGS / TRAIN_CLI_CONFIG), str(overlay)]
+        argv = overrides + base
+        Runner.fit, Runner.log_images = probed_fit, probed_log_images
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        runner = train_cli.main(argv)
+        first_s = time.perf_counter() - t0
+        peak1 = torch.cuda.max_memory_allocated() / 2**30
+        calls1 = [(k, s) for k, s, _ in times.take()]
+        csv1 = (logdir / "metrics.csv").read_text()
+        n_train = sum(m.numel() for m in runner.trainer.master.values())
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = train_cli.main(overrides + ["run.max_steps=4", "--resume",
+                                             str(logdir / "checkpoints" / "last")] + base)
+        second_s = time.perf_counter() - t0
+        peak2 = torch.cuda.max_memory_allocated() / 2**30
+        calls2 = [(k, s) for k, s, _ in times.take()]
+        del runner
+        launches, sites = dict(_build.LAUNCHES), dict(_build.SITES)
+        csv2 = (logdir / "metrics.csv").read_text()
+        ckpt_bytes = (logdir / "checkpoints" / "last").stat().st_size
+        images = sorted(p.name for p in (logdir / "images").iterdir())
+        videos = {step: [logdir / "images" / n for n in images
+                         if n.startswith(f"sample_{step:08d}.") and not n.endswith(".png")]
+                  for step in TRAIN_CLI_IMAGE_STEPS}
+        frames = {step: [video_frames(p) for p in v] for step, v in videos.items()}
+    finally:
+        times.close()
+        Runner.fit, Runner.log_images = fit, log_images
+        shutil.rmtree(tmp, ignore_errors=True)  # the checkpoint alone is about 5 GB
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    faults = []
+    first, second = runs
+    # the CSV: train rows 1-4, one val row at step 3, appended on resume
+    rows = list(csv.DictReader(csv2.splitlines()))
+    header = csv2.splitlines()[0].split(",")
+    train_rows = [r for r in rows if r["loss"]]
+    val_rows = [r for r in rows if r.get("val_loss")]
+    losses = [float(r["loss"]) for r in train_rows] + [float(r["val_loss"]) for r in val_rows]
+    train_keys = {"loss", "loss_main", "loss_hf", "sigma_mean", "steps_per_sec",
+                  "grad_norm_trained"}
+    if [int(r["step"]) for r in train_rows] != [1, 2, 3, 4]:
+        faults.append(f"train rows at steps {[r['step'] for r in train_rows]}, not 1-4")
+    if [int(r["step"]) for r in val_rows] != [3]:
+        faults.append(f"val rows at steps {[r['step'] for r in val_rows]}, not 3")
+    if not train_keys <= set(header) or "grad_norm" in header:
+        faults.append(f"CSV header {header} lacks {sorted(train_keys - set(header))} or names "
+                      "grad_norm under lora_only")
+    if not all(r[k] for r in train_rows for k in train_keys):
+        faults.append("a train row lacks a value")
+    if "val_loss" not in header or header.index("val_loss") < max(
+            header.index(k) for k in train_keys if k in header):
+        faults.append(f"the val columns do not follow the train columns: {header}")
+    if not csv2.startswith(csv1):
+        faults.append("the resumed run rewrote the CSV instead of appending to it")
+    if not all(math.isfinite(v) for v in losses):
+        faults.append(f"non-finite losses: {losses}")
+    # images: steps 1, 2 and 4 each wrote a sample, an input and a recon grid
+    # and a 25-frame video
+    for step in TRAIN_CLI_IMAGE_STEPS:
+        missing = [f"{kind}_{step:08d}.png" for kind in ("sample", "input", "recon")
+                   if f"{kind}_{step:08d}.png" not in images]
+        if missing or frames[step] != [n_frames]:
+            faults.append(f"step {step}: images missing {missing} or video frames {frames[step]}")
+    if failures:
+        faults.append(f"image logs failed: {failures}")
+    # frozen tensors bit-identical through both runs; adapters and EMA moved
+    if not torch.equal(first["end"]["frozen"], first["start"]["frozen"]) or not torch.equal(
+            second["end"]["frozen"], first["start"]["frozen"]):
+        faults.append("a frozen tensor changed")
+    with_grad = first["end"]["with_grad"]
+    moved = first["end"]["master"] != first["start"]["master"]
+    ema_moved = first["end"]["ema"] != first["start"]["ema"]
+    if not bool(with_grad.any()) or bool((with_grad & ~moved).any()) or bool(
+            (moved & ~ema_moved).any()):
+        faults.append(f"of {len(moved)} trained tensors, {int(with_grad.sum())} had a gradient "
+                      f"past Adam's eps, "
+                      f"{int(moved.sum())} masters and {int(ema_moved.sum())} EMAs moved")
+    # the resume restored the saved state bit for bit and took one step more
+    restored, saved = second["start"], first["end"]
+    same = [g for g in ("master", "mu", "nu", "ema", "acc", "frozen")
+            if torch.equal(restored[g], saved[g])]
+    if len(same) != 6 or (restored["step"], restored["updates"]) != (3, 3):
+        faults.append(f"the resumed state differs from the saved one: equal {same}, step "
+                      f"{restored['step']}, updates {restored['updates']}")
+    if second["step"] != 4 or len(second["step_times"]) != 1:
+        faults.append(f"the resumed run ended at step {second['step']} after "
+                      f"{len(second['step_times'])} steps")
+    # every kernel and call site of the train path; each image log's sampling sites
+    missing = missing_launches(TRAIN_KERNELS + ATTENTION_ROUTES + ATTENTION_BWD_ROUTES,
+                               TRAIN_SITES)
+    if missing:
+        faults.append(f"kernels or call sites never launched on the train CLI's path: {missing}")
+    for i, logged in enumerate(image_sites):
+        missing = [k for k in LORA_SAMPLE_SITES if logged.get(k, 0) == 0]
+        if missing:
+            faults.append(f"image log {i} never launched {missing}")
+    if len(image_sites) != len(TRAIN_CLI_IMAGE_STEPS):
+        faults.append(f"{len(image_sites)} image logs, not {len(TRAIN_CLI_IMAGE_STEPS)}")
+
+    steps = first["step_times"] + second["step_times"]
+    secs = lambda calls, name: [s for k, s in calls if k == name]
+    logged = {"sampling": sum(secs(calls1 + calls2, "sample")),
+              "decodes": sum(secs(calls1 + calls2, "decode_first_stage")),
+              "files": sum(s for k, s in calls1 + calls2
+                            if k in ("save_video_mp4", "save_grid_png"))}
+    logged["else"] = sum(image_s) - sum(logged.values())
+    result = dict(
+        card=CARD, argv=argv, trained_params=n_train,
+        decoder="native" if native.available() else "PIL", write_clips_s=write_s,
+        s_per_step=sum(s for _, s in steps[1:3]) / 2, step_s=[s for _, s in steps],
+        data_wait_s=[w for w, _ in steps],
+        validate_s=secs(calls1, "validate"), log_images_s=image_s, log_images_split_s=logged,
+        save_s=secs(calls1 + calls2, "save_checkpoint"), load_s=secs(calls2, "resume"),
+        checkpoint_bytes=ckpt_bytes, first_run_s=first_s, resumed_run_s=second_s,
+        peak_gib=[peak1, peak2], csv=csv2, launches=sites, image_log_sites=image_sites)
+    log(f"  phase-2 stage-2 through the train CLI at 576x1024 ({n_train / 1e6:.1f} M trained "
+        f"params, LoRA + action, warm-up 1000): {result['s_per_step']:.3f} s/step (steps 2-3; "
+        f"steps {', '.join(f'{s:.3f}' for s in result['step_s'])} s), waiting on the pipeline "
+        f"{', '.join(f'{w:.3f}' for w in result['data_wait_s'])} s; JPEG decoder: "
+        f"{result['decoder']}")
+    log(f"  validate {', '.join(f'{s:.3f}' for s in result['validate_s'])} s; image logs "
+        f"{', '.join(f'{s:.3f}' for s in result['log_images_s'])} s (over the "
+        f"{len(image_s)}: {', '.join(f'{k} {v:.3f}' for k, v in logged.items())} s); checkpoint "
+        f"{ckpt_bytes / 1e9:.3f} GB saved in {', '.join(f'{s:.3f}' for s in result['save_s'])}"
+        f" s, loaded in {', '.join(f'{s:.3f}' for s in result['load_s'])} s; runs "
+        f"{first_s:.3f} + {second_s:.3f} s (clips written in {write_s:.3f} s); peak "
+        f"{peak1:.2f} / {peak2:.2f} GiB; card {CARD}")
+    log(f"  losses {', '.join(f'{v:.5f}' for v in losses)}; adapters with a gradient past "
+        f"Adam's eps "
+        f"{int(with_grad.sum())} of {len(with_grad)}, masters moved {int(moved.sum())}, EMA "
+        f"moved {int(ema_moved.sum())}; restored state equal in {same}")
+    log(f"    launches by site: {json.dumps(sites, sort_keys=True)}")
+    OUT.mkdir(exist_ok=True)
+    (OUT / "train_cli.json").write_text(json.dumps(result, indent=1))
+    if faults:
+        raise SystemExit("train CLI: " + "; ".join(faults))
+    return launches
+
+
+# ---------------------------------------------------------------- phase 8
+
 PHASE1_MICRO_STEPS = 4  # two optimizer steps at accum_steps = 2
 
 
 def phase1_cfg():
-    """configs/vista_phase1.yaml: the engine and the train recipe (the
-    loss's ``cond_frames_choices`` is the config's default,
-    [[], [0], [0, 1], [0, 1, 2]])."""
-    from vista_tpu_torch.diffusion.loss import LossConfig
-    from vista_tpu_torch.engine.engine import EngineConfig
-    from vista_tpu_torch.engine.training import TrainConfig
-
-    base = EngineConfig()
-    cfg = dataclasses.replace(
-        base, unet=dataclasses.replace(base.unet, remat=True),
-        conditioner=dataclasses.replace(base.conditioner, ucg_rate=0.15))
-    train = TrainConfig(learning_rate=5e-5, warmup_steps=1000, grad_clip=0.3, accum_steps=2,
-                        policy="slow_spatial", slow_spatial_factor=0.1, ema_decay=0.9999,
-                        loss=LossConfig(num_frames=25, sigma_p_mean=1.0, sigma_p_std=1.6,
-                                        weighting="v", use_additional_loss=True,
-                                        additional_loss_weight=0.1, replace_cond_frames=True))
-    return cfg, train
+    """configs/vista_phase1.yaml: the engine and the train recipe."""
+    return recipe("vista_phase1.yaml")
 
 
 def phase1_batch(h, w, frames, gen, device):
@@ -1859,7 +2150,8 @@ def checksums(tensors):
     elements summed to the same value."""
     out = []
     for t in tensors:
-        bits = t.reshape(-1).view(torch.int32).to(torch.int64) % _HASH_P
+        word = {2: torch.int16, 4: torch.int32}[t.element_size()]
+        bits = t.reshape(-1).view(word).to(torch.int64) % _HASH_P
         w = torch.arange(bits.numel(), device=t.device, dtype=torch.int64) * 2654435761 % _HASH_P
         out.append((bits * (w + 1) % _HASH_P).sum())
     return torch.stack(out).cpu()
@@ -2022,13 +2314,14 @@ def main():
     sample = phase("slice", slice_run, args.seed, args.profile)
     rollout = phase("rollout", rollout_run, args.seed)
     train = phase("train", train_run, args.seed)
-    gc.collect()  # the phase-2 engine and trainer, before the phase-1 ones
+    gc.collect()  # the phase-2 engine and trainer, before the next ones
     torch.cuda.empty_cache()
+    train_cli = phase("train_cli", train_cli_run, args.seed)
     phase1 = phase("phase1", phase1_run, args.seed)
 
     kernels = []
     paths = {"sample": sample, "rollout": rollout["rollout"], "reward": rollout["reward"],
-             "train": train, "phase1": phase1}
+             "train": train, "train_cli": train_cli, "phase1": phase1}
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         timed = mine[0]  # the first (largest) main-path shape of the kernel

@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 
 from vista_tpu.ops.tiny_attention import tiny_attention_packed
+from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu_torch.ops import attention as attention_module
 from vista_tpu_torch.ops.attention import (FWD_SMALL_KEYS, FWD_STAGES, SMALL_KEYS,
                                            attention_bwd, attention_bwd_plain,

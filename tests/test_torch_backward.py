@@ -45,6 +45,7 @@ from vista_tpu.ops.temporal_conv import (fused_gn_silu_conv3_emb as jax_emb,
                                          fused_gn_silu_conv3_res as jax_res,
                                          temporal_conv3)
 from vista_tpu.ops.tiny_attention import tiny_attention_packed
+from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu_torch.ops.attention import attention_packed
 from vista_tpu_torch.ops.fused_ff import fused_geglu_ff
 from vista_tpu_torch.ops.fused_qkv import fused_ln_qkv, fused_ln_qkv_bwd_plain

@@ -30,23 +30,13 @@ from vista_tpu.cli import reward as jax_reward_cli
 from vista_tpu.cli import sample as jax_sample_cli
 from vista_tpu.engine.engine import VistaEngine as JVistaEngine
 from vista_tpu.utils import video as jax_video
+from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu_torch.cli import reward as reward_cli
 from vista_tpu_torch.cli import sample as sample_cli
 from vista_tpu_torch.cli._common import build_engine
 from vista_tpu_torch.utils import video
 
 T = 4  # the tiny engine's frames
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny engine's small ops run no slower on it,
-    and the suite's workers share the machine's cores (more threads a
-    worker oversubscribe them)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def parse_avi(data: bytes) -> dict:

@@ -23,6 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import one_thread  # noqa: F401
 from tests.test_torch_unet import random_params
 from vista_tpu.engine.engine import EngineConfig as JEngineConfig
 from vista_tpu.engine.engine import VistaEngine as JVistaEngine

@@ -12,6 +12,7 @@ TF32 off for its products and convolutions.
 import pytest
 import torch
 
+from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu_torch.ops import _build
 from vista_tpu_torch.ops.attention import (SMALL_KEYS, attention_bwd, attention_bwd_plain,
                                            attention_forward, attention_packed,

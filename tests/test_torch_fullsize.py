@@ -35,7 +35,13 @@ from vista_tpu.models import clip as jclip
 from vista_tpu.models import conditioner as jconditioner
 from vista_tpu.models import unet as junet
 from vista_tpu.models import vae as jvae
+from vista_tpu import runner as jrunner
+from vista_tpu.data import datasets as jdatasets
+from vista_tpu.data import pipeline as jpipeline
 from vista_tpu.utils import torch_import as ti
+from tests.torch_threads import one_thread  # noqa: F401
+from vista_tpu_torch import runner
+from vista_tpu_torch.data import datasets, pipeline
 from vista_tpu_torch.diffusion import guidance, loss, sampler
 from vista_tpu_torch.engine import engine, rollout, training
 from vista_tpu_torch.models import conditioner
@@ -179,6 +185,16 @@ def _as_plain(v):
 UNET_TPU_ONLY = {"attn_backend", "remat_max_ds", "remat_policy"}
 
 
+def _without_tpu_only(v):
+    """A plain config dict with the UNet's TPU-only keys dropped wherever a
+    UNet config sits in it."""
+    if not isinstance(v, dict):
+        return v
+    if "attn_backend" in v:
+        v = {k: x for k, x in v.items() if k not in UNET_TPU_ONLY}
+    return {k: _without_tpu_only(x) for k, x in v.items()}
+
+
 @pytest.mark.parametrize("port_cls,jax_cls,tpu_only", [
     (VideoUNetConfig, junet.VideoUNetConfig, UNET_TPU_ONLY),
     (VAEConfig, jvae.VAEConfig, set()),
@@ -190,12 +206,17 @@ UNET_TPU_ONLY = {"attn_backend", "remat_max_ds", "remat_policy"}
     (training.TrainConfig, jtraining.TrainConfig, set()),
     (loss.LossConfig, jloss.LossConfig, set()),
     (rollout.RolloutConfig, jrollout.RolloutConfig, set()),
+    (runner.RunConfig, jrunner.RunConfig, set()),
+    (runner.ParallelConfig, jrunner.ParallelConfig, set()),
+    (runner.ExperimentConfig, jrunner.ExperimentConfig, set()),
+    (pipeline.DataConfig, jpipeline.DataConfig, set()),
+    (pipeline.SourceConfig, jpipeline.SourceConfig, set()),
+    (pipeline.PipelineConfig, jpipeline.PipelineConfig, set()),
+    (datasets.DatasetConfig, jdatasets.DatasetConfig, set()),
 ])
 def test_config_defaults_match_jax(port_cls, jax_cls, tpu_only):
     port, ref = _defaults(port_cls), _defaults(jax_cls)
     assert set(port) == set(ref) - tpu_only
     for name in port:
-        p, r = _as_plain(port[name]), _as_plain(ref[name])
-        if name == "unet":
-            r = {k: v for k, v in r.items() if k not in UNET_TPU_ONLY}
+        p, r = _as_plain(port[name]), _without_tpu_only(_as_plain(ref[name]))
         assert p == r, name

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu_torch.ops.linear import (GEMM_TILE, TOKEN_BOX, seg_gemm, seg_gemm_plain,
                                         weight_grad, weight_grad_plain, wgrad_plan)
 

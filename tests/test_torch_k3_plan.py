@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu_torch.ops import _build, fused_ff, linear
 from vista_tpu_torch.ops.fused_ff import ff_bwd_dh, ff_bwd_dh_plain, ff_bwd_dh_plan, ff_bwd_plain
 from vista_tpu_torch.ops.linear import linear_residual, linear_residual_plan

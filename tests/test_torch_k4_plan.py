@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu_torch.ops import _build, temporal_conv
 from vista_tpu_torch.ops.temporal_conv import (conv3, conv3_plain, conv3_plan, gn_silu,
                                                gn_silu_conv3, gn_silu_conv3_plain, gn_silu_plain)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu_torch.ops import norms
 from vista_tpu_torch.ops.norms import MAX_C, layer_norm_plain, ln_bwd_plain, ln_plan
 

@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 
 from vista_tpu.ops.norms import layer_norm as jax_layer_norm
+from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu_torch.ops.norms import layer_norm
 
 

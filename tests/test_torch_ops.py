@@ -25,6 +25,7 @@ from vista_tpu.ops import fused_qkv as jqkv
 from vista_tpu.ops import fused_temporal_attn as jta
 from vista_tpu.ops import temporal_conv as jtc
 from vista_tpu.ops import tiny_attention as jtiny
+from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu_torch.ops.attention import attention_forward, attention_packed
 from vista_tpu_torch.ops.fused_ff import fused_geglu_ff
 from vista_tpu_torch.ops.fused_qkv import fused_ln_qkv

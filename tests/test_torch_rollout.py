@@ -28,6 +28,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import one_thread  # noqa: F401
 from tests.test_torch_conditioner import H, W, build, nchw
 from vista_tpu.diffusion.guidance import GuiderConfig as JGuiderConfig
 from vista_tpu.diffusion.sampler import SamplerConfig as JSamplerConfig
@@ -43,17 +44,6 @@ from vista_tpu_torch.engine.rollout import RolloutDraws
 TOL = 1e-4
 ROUNDS, STEPS, ENSEMBLE = 2, 2, 3
 ROLLOUT_SEED, REWARD_SEED = 5, 6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny engine's small ops run no slower on it,
-    and the suite's workers share the machine's cores (more threads a
-    worker oversubscribe them)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(got, ref):

@@ -17,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import one_thread  # noqa: F401
 from tests.test_torch_unet import random_params
 from vista_tpu.diffusion.guidance import GuiderConfig as JGuiderConfig
 from vista_tpu.diffusion.sampler import SamplerConfig as JSamplerConfig

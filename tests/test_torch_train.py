@@ -26,6 +26,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import one_thread  # noqa: F401
 from tests.test_torch_conditioner import H, W, build, jax_ucg_keep, nchw
 from vista_tpu.diffusion.loss import LossConfig as JLossConfig
 from vista_tpu.engine.training import TrainConfig as JTrainConfig

@@ -31,6 +31,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import one_thread  # noqa: F401
 from tests.test_torch_conditioner import build
 from tests.test_torch_train import LOSS, _adam_mu, _batch, _jax_draws, _rel
 from vista_tpu.diffusion.loss import LossConfig as JLossConfig

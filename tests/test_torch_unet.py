@@ -25,6 +25,7 @@ import jax.numpy as jnp
 from vista_tpu.engine.engine import EngineConfig as JEngineConfig
 from vista_tpu.engine.engine import VistaEngine as JVistaEngine
 from vista_tpu.utils import torch_import as ti
+from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu_torch.engine.engine import EngineConfig, VistaEngine
 from vista_tpu_torch.utils.checkpoint import UNET_PREFIX, load_vista_state_dict
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu_torch.ops import _build, linear
 from vista_tpu_torch.ops.linear import (GEMM_TILE, TOKEN_BOX, bias_grad_plain, weight_bias_grads,
                                         weight_grad, weight_grad_plain, wgrad_launch, wgrad_plan)

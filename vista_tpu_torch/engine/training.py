@@ -29,10 +29,17 @@ Every random draw of a step (:class:`TrainDraws`) is an argument:
 in the JAX package's draws. The reported ``grad_norm`` is the micro-batch's
 own, over the leaves that train (the JAX package's metric also counts the
 frozen leaves' grads, which the port never computes).
+
+:func:`eval_loss` is the loss alone (counterpart of ``make_eval_step``):
+no ucg dropout, no gradient, under whatever weights the modules hold;
+:meth:`Trainer.ema_weights` puts the EMA shadows in for its span.
+:meth:`Trainer.state_dict` holds everything a resume needs: the masters,
+Adam's moments, the EMA, the accumulation buffer and both counts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Mapping, Optional
 
@@ -90,7 +97,9 @@ class TrainDraws:
 
 
 def draw_train(engine, cfg: TrainConfig, batch: Mapping[str, torch.Tensor],
-               gen: torch.Generator) -> TrainDraws:
+               gen: torch.Generator, dropout: bool = True) -> TrainDraws:
+    """The draws of one step from ``gen``; ``dropout=False`` (evaluation)
+    draws no ucg masks."""
     b, t, _, h, w = batch["frames"].shape
     dev = batch["frames"].device
     f = engine.cfg.vae.downsample_factor
@@ -99,8 +108,34 @@ def draw_train(engine, cfg: TrainConfig, batch: Mapping[str, torch.Tensor],
     return TrainDraws(
         posterior=torch.randn(b * t, z, h // f, w // f, generator=gen, device=dev),
         cond_aug=torch.randn(b, 3, h, w, generator=gen, device=dev),
-        ucg_keep=draw_ucg_keep(ccfg, b, gen, dev) if ccfg.ucg_rate > 0 else None,
+        ucg_keep=draw_ucg_keep(ccfg, b, gen, dev) if dropout and ccfg.ucg_rate > 0 else None,
         loss=draw_loss(cfg.loss, (b * t, z, h // f, w // f), gen, dev))
+
+
+def _loss(engine, cfg: TrainConfig, batch: Mapping[str, torch.Tensor], draws: TrainDraws):
+    """The training loss and its metrics: the frozen first stage and
+    conditioner, then the UNet's diffusion loss."""
+    frames = batch["frames"]
+    b, t = frames.shape[:2]
+    latents = engine.encode_first_stage(frames.reshape(b * t, *frames.shape[2:]),
+                                        draws.posterior)
+    first = frames[:, 0]
+    cond_batch = {k: v for k, v in batch.items() if k != "frames"}
+    cond_batch["cond_frames_without_noise"] = first
+    cond_batch["cond_frames"] = first + batch["cond_aug"].reshape(-1, 1, 1, 1) * draws.cond_aug
+    cond = engine.conditions(cond_batch, ucg_keep=draws.ucg_keep)
+    return diffusion_loss(engine.denoise_fn(t), latents, cond, cfg.loss, draws.loss)
+
+
+@torch.no_grad()
+def eval_loss(engine, cfg: TrainConfig, batch: Mapping[str, torch.Tensor],
+              draws: TrainDraws):
+    """The training loss under the weights the modules hold, without ucg
+    dropout and without a gradient: ``(loss, metrics)``. ``draws.ucg_keep``
+    must be None."""
+    if draws.ucg_keep is not None:
+        raise ValueError("the eval loss takes no ucg dropout: pass ucg_keep=None")
+    return _loss(engine, cfg, batch, draws)
 
 
 class Trainer:
@@ -134,20 +169,9 @@ class Trainer:
     def loss_and_grads(self, batch: Mapping[str, torch.Tensor], draws: TrainDraws):
         """Forward and backward; the gradients land on every UNet parameter
         that requires grad. Returns the loss and its metrics."""
-        engine = self.engine
-        frames = batch["frames"]
-        b, t = frames.shape[:2]
-        latents = engine.encode_first_stage(frames.reshape(b * t, *frames.shape[2:]),
-                                            draws.posterior)
-        first = frames[:, 0]
-        cond_batch = {k: v for k, v in batch.items() if k != "frames"}
-        cond_batch["cond_frames_without_noise"] = first
-        cond_batch["cond_frames"] = first + batch["cond_aug"].reshape(-1, 1, 1, 1) * draws.cond_aug
-        cond = engine.conditions(cond_batch, ucg_keep=draws.ucg_keep)
-        for p in engine.unet.parameters():
+        for p in self.engine.unet.parameters():
             p.grad = None
-        loss, aux = diffusion_loss(engine.denoise_fn(t), latents, cond, self.cfg.loss,
-                                   draws.loss)
+        loss, aux = _loss(self.engine, self.cfg, batch, draws)
         loss.backward()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
@@ -208,6 +232,46 @@ class Trainer:
             master.add_(u * rate)
             self.params[n].copy_(master)
         self.updates = count
+
+    @contextlib.contextmanager
+    def ema_weights(self):
+        """For the span of the block the module's trained parameters hold
+        their EMA shadows (cast to the compute dtype); on exit they are
+        restored from the fp32 masters, bit for bit. Frozen leaves are their
+        own shadows and stay as they are."""
+        with torch.no_grad():
+            for n, p in self.params.items():
+                p.copy_(self.ema[n])
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for n, p in self.params.items():
+                    p.copy_(self.master[n])
+
+    def state_dict(self) -> Dict:
+        """The optimizer's whole state (references, not copies): fp32
+        ``master``, ``mu``, ``nu``, ``ema`` and ``acc`` (empty without
+        accumulation) by parameter name, ``step`` and ``updates``."""
+        return {"master": self.master, "mu": self.mu, "nu": self.nu, "ema": self.ema,
+                "acc": self.acc if self.acc is not None else {},
+                "step": self.step, "updates": self.updates}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping) -> None:
+        """Copy a :meth:`state_dict` in (same names and shapes; any device) and
+        set the module's trained parameters from the masters."""
+        for group, mine in (("master", self.master), ("mu", self.mu), ("nu", self.nu),
+                            ("ema", self.ema), ("acc", self.acc or {})):
+            theirs = state[group]
+            if set(theirs) != set(mine):
+                raise KeyError(f"trainer state {group!r}: the names differ from this "
+                               f"trainer's ({len(theirs)} against {len(mine)})")
+            for n, t in mine.items():
+                t.copy_(theirs[n])
+        self.step, self.updates = int(state["step"]), int(state["updates"])
+        for n, p in self.params.items():
+            p.copy_(self.master[n])
 
     def __call__(self, batch: Mapping[str, torch.Tensor], draws: TrainDraws) -> Dict[str, float]:
         loss, aux = self.loss_and_grads(batch, draws)

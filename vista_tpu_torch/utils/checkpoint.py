@@ -15,10 +15,17 @@ missing or extra key raises.
   trunk: the port holds one encoder, as the JAX package does;
 - ``conditioner.embedders.0.open_clip.model.visual.*`` -> the CLIP tower and
   ``conditioner.embedders.3.encoder.quant_conv.*`` -> ``quant_conv``.
+
+``save_checkpoint`` / ``load_checkpoint`` are the training run's own files
+(the torch counterpart of the JAX package's Orbax pair): the trainer's state
+and every module's state dict, written by ``torch.save`` to a temporary file
+that ``os.replace`` then moves into place, read back with
+``weights_only=True`` onto the CPU.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
@@ -65,3 +72,18 @@ def load_vista_state_dict(unet: Optional[nn.Module], decoder: Optional[nn.Module
     if conditioner is not None:
         _load(conditioner.clip_tower, _subset(state, CLIP_PREFIX))
         _load(conditioner.quant_conv, _subset(state, QUANT_PREFIX))
+
+
+def save_checkpoint(path: str, trainer_state: Mapping, modules: Mapping[str, nn.Module]) -> None:
+    """Write ``{"trainer": trainer_state, "modules": {name: state_dict}}`` to
+    ``path`` whole or not at all."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp"
+    torch.save({"trainer": dict(trainer_state),
+                "modules": {name: m.state_dict() for name, m in modules.items()}}, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> Dict:
+    """What :func:`save_checkpoint` wrote, its tensors on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
