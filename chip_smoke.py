@@ -50,7 +50,28 @@ Phases, each timed on its own line:
    its own size, beside the same error of bf16 on the CPU), four
    micro-steps (two optimizer steps) with the launch counts of every kernel
    and checks of which tensors move after which call, and a traced
-   optimizer step.
+   optimizer step;
+9. sampling_modes (after slice): the headline request (576x1024, 25 frames,
+   triangle CFG 2.5) at 5 steps on one noise, batched, sequential and
+   batched with churn (``s_churn`` 1, eps from a ``torch.Generator`` on the
+   card): seconds, peak memory and K1-K4 launches a step of each (sequential
+   twice batched's), sequential against batched within 1.5x a small run's
+   bf16-on-the-CPU error, churn finite with frame 0 pinned bit for bit; the
+   small run's three forms on the card against the CPU in fp32;
+10. convert (inside train_cli, on its final checkpoint): ``cli.convert
+    --merge-lora`` to a ``.safetensors``, loaded by ``cli.sample --ckpt``
+    (``strict=True``) for one round of 5 steps against the same round from
+    the runner's modules with LoRA unmerged and the EMA in; the file's size
+    and the seconds to write and load it; the file is deleted;
+11. vae_train: ``VAEConfig()`` at full width on 576x1024 frames, batch 1,
+    four alternating AE / discriminator steps (``StepTimer``): seconds a
+    step of each kind, peak memory, which modules each step moved; a small
+    step on the card in fp32 against the CPU;
+12. quality: the full-width CLIP text tower on the card against the CPU,
+    then ``tools/torch_quality_bench.py`` in-process: ``--calibrate`` at
+    576x1024 on 2 synthetic clips (FCD rising over the noise and blur
+    grades, PSNR and SSIM falling) and one harness run (1 clip, 1 round of
+    5 steps).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -1831,12 +1852,14 @@ def runner_sums(runner):
     return out
 
 
-def train_cli_run(seed):
+def train_cli_run(seed, then=None):
     """The phase-2 stage-2 recipe (configs/vista_phase2_stage2.yaml: LoRA +
     action control at 576x1024, 25 frames, batch 1, remat, dynamics loss,
     the recipe's warm-up) through ``vista_tpu_torch.cli.train.main`` from
     JPEG clips on disk and the modules' own initialisation: three steps with
-    validation and image logs, then ``--resume`` for a fourth."""
+    validation and image logs, then ``--resume`` for a fourth. ``then(ckpt,
+    tmp)`` runs as the phase "convert" on the final checkpoint before the
+    temporary directory goes. Returns the launch counts of both."""
     import csv
     import tempfile
 
@@ -1916,6 +1939,15 @@ def train_cli_run(seed):
                          if n.startswith(f"sample_{step:08d}.") and not n.endswith(".png")]
                   for step in TRAIN_CLI_IMAGE_STEPS}
         frames = {step: [video_frames(p) for p in v] for step, v in videos.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        converted = None
+        if then:  # its own counts; this path's are put back for the checks below
+            counts = dict(_build.LAUNCHES), dict(_build.SITES)
+            converted = phase("convert", then, logdir / "checkpoints" / "last", tmp)
+            _build.reset_counts()
+            _build.LAUNCHES.update(counts[0])
+            _build.SITES.update(counts[1])
     finally:
         times.close()
         Runner.fit, Runner.log_images = fit, log_images
@@ -2029,7 +2061,7 @@ def train_cli_run(seed):
     (OUT / "train_cli.json").write_text(json.dumps(result, indent=1))
     if faults:
         raise SystemExit("train CLI: " + "; ".join(faults))
-    return launches
+    return {"train_cli": launches, "convert": converted}
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2300,6 +2332,444 @@ def phase1_run(seed):
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+
+MODES_STEPS = 5
+# full width, sequential against batched CFG: two bf16 computations of one
+# function, each within bf16's own error of the fp32 result; held to this
+# many times the small run's bf16-on-the-CPU error (the rollout check's rule)
+MODES_BF16_RATIO = 1.5
+K_NAMES = {"K1": "attention", "K2": "ln_linear", "K3": "linear_residual",
+           "K4": "gn_silu_conv3", "K4 pre-pass": "gn_silu"}
+
+
+def rel_err(got, ref):
+    return float((got.float().cpu() - ref.float().cpu()).abs().max() / ref.float().abs().max())
+
+
+def modes_reference(seed):
+    """A small sampling run in the three forms (batched, sequential, churn
+    with the same passed eps) on the card in bf16 against the CPU in fp32,
+    each within ``SLICE_TOL``; beside them bf16 on the CPU (batched) against
+    fp32, bf16's own error on this path, and on the CPU in fp32 sequential
+    against batched, printed (the same function; batches of 10 and 5 frames
+    block the convs' and products' sums apart)."""
+    from vista_tpu_torch.diffusion.sampler import SamplerConfig
+    from vista_tpu_torch.engine.engine import VistaEngine
+
+    cfg = small_cfg()
+    cpu = VistaEngine(cfg, "cpu")
+    init_engine(cpu, torch.Generator().manual_seed(seed))
+    gpu, cpu_bf16 = card_twin(cpu, cfg), card_twin(cpu, cfg, "cpu")
+    noise, cond, uc, cf, cm, guider = requests_inputs(
+        cfg, 64, 64, 5, torch.Generator().manual_seed(seed + 1), "cpu")
+    eps = torch.randn(2, *noise.shape, generator=torch.Generator().manual_seed(seed + 2))
+    forms = {"batched": SamplerConfig(num_steps=2, guider=guider),
+             "sequential": SamplerConfig(num_steps=2, guider=guider, cfg_mode="sequential"),
+             "churn": SamplerConfig(num_steps=2, guider=guider, s_churn=1.0)}
+    out = {}
+    for name, engine in (("cpu", cpu), ("card", gpu), ("cpu-bf16", cpu_bf16)):
+        dev = engine.device
+        mv = lambda d: {k: v.to(dev) for k, v in d.items()}
+        for form, sampler in forms.items():
+            if name == "cpu-bf16" and form != "batched":
+                continue
+            churn = (lambda i: eps[i].to(dev)) if form == "churn" else None
+            out[name, form] = engine.sample(noise.to(dev), mv(cond), mv(uc), cf.to(dev),
+                                            cm.to(dev), sampler, churn_noise=churn).cpu().float()
+    errs = {f"card {form}": rel_err(out["card", form], out["cpu", form]) for form in forms}
+    errs["cpu-bf16 batched"] = rel_err(out["cpu-bf16", "batched"], out["cpu", "batched"])
+    errs["cpu sequential vs batched"] = rel_err(out["cpu", "sequential"], out["cpu", "batched"])
+    log("  small sampling modes, card bf16 vs cpu fp32 (max-normalised): " + ", ".join(
+        f"{k.split(' ')[1]} {v:.3e}" for k, v in errs.items() if k.startswith("card"))
+        + f" (limit {SLICE_TOL}); bf16 on the CPU {errs['cpu-bf16 batched']:.3e}; fp32 "
+        f"sequential vs batched {errs['cpu sequential vs batched']:.3e}")
+    if not all(errs[f"card {f}"] <= SLICE_TOL for f in forms):
+        raise SystemExit("the small sampling modes disagree with the CPU reference")
+    return errs
+
+
+def sampling_modes_run(seed):
+    """The headline request (576x1024, 25 frames, triangle CFG 2.5) at
+    ``MODES_STEPS`` steps on one noise in three forms: batched CFG,
+    sequential CFG, and batched with churn (``s_churn`` 1, eps drawn on the
+    card from a ``torch.Generator``)."""
+    from vista_tpu_torch.diffusion.sampler import SamplerConfig
+    from vista_tpu_torch.engine.engine import EngineConfig, VistaEngine
+    from vista_tpu_torch.ops import _build
+
+    small = phase("sampling_modes-reference", modes_reference, seed)
+    cfg = EngineConfig()
+    engine = VistaEngine(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    init_engine(engine, gen)
+    noise, cond, uc, cf, cm, guider = requests_inputs(cfg, 576, 1024, 25, gen, "cuda")
+    forms = {"batched": SamplerConfig(num_steps=MODES_STEPS, guider=guider),
+             "sequential": SamplerConfig(num_steps=MODES_STEPS, guider=guider,
+                                         cfg_mode="sequential"),
+             "churn": SamplerConfig(num_steps=MODES_STEPS, guider=guider, s_churn=1.0)}
+    _build.reset_counts()
+    results, lats, faults = {}, {}, []
+    for form, sampler in forms.items():
+        churn = (torch.Generator(device="cuda").manual_seed(seed + 23) if form == "churn"
+                 else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        lat = engine.sample(noise, cond, uc, cf, cm, sampler, churn_noise=churn)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_step = {k: (_build.LAUNCHES.get(n, 0) - before.get(n, 0)) / MODES_STEPS
+                    for k, n in K_NAMES.items()}
+        results[form] = dict(seconds=seconds, s_per_step=seconds / MODES_STEPS, peak_gib=peak,
+                             launches_per_step=per_step)
+        lats[form] = lat
+        log(f"  {form}: {seconds:.3f} s a request of {MODES_STEPS} steps "
+            f"({seconds / MODES_STEPS:.3f} s/step), peak {peak:.2f} GiB; launches a step "
+            + ", ".join(f"{k} {v:g}" for k, v in per_step.items()))
+        if not bool(torch.isfinite(lat).all()):
+            faults.append(f"{form}: non-finite latents")
+        if not torch.equal(lat[0], cf[0]):
+            faults.append(f"{form}: frame 0 is not the cond frame bit for bit")
+    twice = {k: results["sequential"]["launches_per_step"][k]
+             == 2 * results["batched"]["launches_per_step"][k] for k in K_NAMES}
+    if not all(twice.values()) or not all(results["batched"]["launches_per_step"].values()):
+        faults.append(f"sequential does not launch twice batched's kernels a step: {twice}")
+    seq = rel_err(lats["sequential"], lats["batched"])
+    churn_moved = rel_err(lats["churn"], lats["batched"])
+    limit = MODES_BF16_RATIO * small["cpu-bf16 batched"]
+    log(f"  sequential vs batched: {seq:.3e} max-normalised (limit {limit:.3e}: "
+        f"{MODES_BF16_RATIO} x the small run's bf16-on-the-CPU error); churn vs batched "
+        f"{churn_moved:.3e}; card {CARD}")
+    if not seq <= limit:
+        faults.append(f"sequential disagrees with batched: {seq:.3e} > {limit:.3e}")
+    if not churn_moved > 1e-3:
+        faults.append(f"churn did not reach the result ({churn_moved:.3e})")
+    missing = missing_launches(SAMPLE_KERNELS + ATTENTION_ROUTES, SAMPLE_SITES)
+    if missing:
+        faults.append(f"kernels or call sites never launched on the sampling modes: {missing}")
+    launches = dict(_build.LAUNCHES)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "sampling_modes.json").write_text(json.dumps(dict(
+        card=CARD, steps=MODES_STEPS, small=small, forms=results,
+        sequential_vs_batched=seq, churn_vs_batched=churn_moved, launches=launches), indent=1))
+    del engine, lats, lat
+    torch.cuda.empty_cache()
+    if faults:
+        raise SystemExit("sampling modes: " + "; ".join(faults))
+    return launches
+
+
+# ---------------------------------------------------------------- phase 10
+
+CONVERT_ARGV = ["--action", "traj", "--n_rounds", "1", "--n_steps", "5",
+                "--height", "576", "--width", "1024"]
+# the sample CLI's round from the merged file against the runner's own
+# modules (LoRA unmerged, EMA in): the same function in bf16 by two routes
+# (the fused LN + q/k/v against layer_norm + the products and adapters);
+# each is within bf16's own error of fp32, which the small rollout reads at
+# up to 5.2e-2 (ROLLOUT_TOL's note)
+CONVERT_TOL = ROLLOUT_TOL
+
+
+def convert_run(ckpt, tmp):
+    """The ``train_cli`` checkpoint through ``cli.convert --merge-lora`` to a
+    ``.safetensors``, loaded by ``cli.sample --ckpt`` (``strict=True``) into
+    the sample CLI's engine (no LoRA, action control), one round of
+    ``CONVERT_ARGV`` against the same round from the runner's modules with
+    LoRA unmerged and their EMA shadows in, on the same draws. The merged
+    file's adapters must be gone and each trained tensor it keeps (the action
+    adapters) must be its EMA shadow bit for bit."""
+    import numpy as np
+
+    from vista_tpu_torch.cli import convert as convert_cli
+    from vista_tpu_torch.cli import sample as sample_cli
+    from vista_tpu_torch.cli._common import build_engine
+    from vista_tpu_torch.engine.engine import VistaEngine
+    from vista_tpu_torch.ops import _build
+    from vista_tpu_torch.utils import checkpoint as io
+
+    out = tmp / "vista_merged.safetensors"
+    t0 = time.perf_counter()
+    convert_cli.main(["--input", str(ckpt), "--output", str(out), "--merge-lora",
+                      "--action-control"])
+    export_s = time.perf_counter() - t0
+    gb = out.stat().st_size / 1e9
+    state = io.load_checkpoint(str(ckpt))
+    ema = state["trainer"]["ema"]
+    merged = io.load_safetensors(str(out))
+    faults = []
+    adapters = [k for k in merged if "adapter_down" in k or "adapter_up" in k]
+    kept = [n for n in ema if "adapter_action_control" in n]
+    not_ema = [n for n in kept if not np.array_equal(merged[io.UNET_PREFIX + n],
+                                                     ema[n].float().numpy())]
+    lora = max(float((ema[n.replace("_down", "_up")] @ ema[n]).abs().max())
+               for n in ema if "_adapter_down" in n)
+    if adapters or not kept or not_ema:
+        faults.append(f"merged file: {len(adapters)} adapter keys left, {len(kept)} action "
+                      f"adapters, {len(not_ema)} of them not their EMA shadow")
+    del merged
+
+    args = sample_cli.parse_args(CONVERT_ARGV + ["--ckpt", str(out), "--save",
+                                                 str(tmp / "sample_ckpt")])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    engine = build_engine(args)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lat = sample_cli.run(args, engine)["latents"]
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    missing = missing_launches(SAMPLE_KERNELS + ATTENTION_ROUTES, SAMPLE_SITES)
+    if missing:
+        faults.append(f"kernels or call sites never launched from the merged file: {missing}")
+    del engine
+    out.unlink()  # about 10 GB
+
+    ref_cfg = recipe(TRAIN_CLI_CONFIG)[0]
+    ref = VistaEngine(ref_cfg, "cuda")
+    for name in ("unet", "decoder", "encoder", "conditioner"):
+        getattr(ref, name).load_state_dict(state["modules"][name])
+    with torch.no_grad():
+        for n, shadow in ema.items():
+            ref.unet.get_parameter(n).copy_(shadow)
+    del state
+    ref_args = sample_cli.parse_args(CONVERT_ARGV + ["--save", str(tmp / "sample_ref")])
+    ref_lat = sample_cli.run(ref_args, ref)["latents"]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = rel_err(lat, ref_lat)
+    result = dict(card=CARD, file_gb=gb, export_write_s=export_s, build_load_s=load_s,
+                  round_s=round_s, merged_vs_unmerged=err, lora_max=lora,
+                  action_adapters=len(kept), launches=launches)
+    log(f"  convert --merge-lora: {gb:.3f} GB written in {export_s:.3f} s (load, EMA, merge, "
+        f"write); sample CLI --ckpt: engine built and loaded strictly in {load_s:.3f} s, a "
+        f"round of 5 steps at 576x1024 in {round_s:.3f} s (files included); merged vs the "
+        f"runner's unmerged LoRA: {err:.3e} max-normalised (limit {CONVERT_TOL}); largest "
+        f"|up @ down| {lora:.3e}; {len(kept)} action adapters equal their EMA; card {CARD}")
+    if not err <= CONVERT_TOL:
+        faults.append(f"the merged file's round disagrees with the runner's: {err:.3e}")
+    OUT.mkdir(exist_ok=True)
+    (OUT / "convert.json").write_text(json.dumps(result, indent=1))
+    if faults:
+        raise SystemExit("convert: " + "; ".join(faults))
+    return launches
+
+
+# ---------------------------------------------------------------- phase 11
+
+VAE_STEPS = 4  # AE, discriminator, AE, discriminator at disc_start 0
+VAE_CARD_TOL = 1e-4  # the tiny step's metrics and Adam moments, card fp32 vs CPU fp32
+
+
+def vae_trainer(cfg, vae_cfg, device, seed):
+    from vista_tpu_torch.engine.vae_training import VAETrainer
+
+    torch.manual_seed(seed)
+    return VAETrainer(cfg, vae_cfg, device)
+
+
+def vae_reference(seed):
+    """One AE and one discriminator step of a small VAE (ch 64, 32x32,
+    batch 2) on the card in fp32 with TF32 off against the CPU in fp32:
+    the metrics and the Adam moments within ``VAE_CARD_TOL`` (the moments
+    against the module's largest), and each parameter within 1e-3 of lr where
+    its gradient is past 1e-5, else within 2 lr (a first Adam step's most)."""
+    from vista_tpu_torch.engine.vae_training import VAETrainConfig
+    from vista_tpu_torch.models.vae import VAEConfig
+
+    tcfg = VAETrainConfig(learning_rate=1e-4, disc_start=0, disc_channels=8, disc_layers=2)
+    vcfg = VAEConfig(ch=64, ch_mult=(1, 2), num_res_blocks=1, dtype="float32")
+    cpu = vae_trainer(tcfg, vcfg, "cpu", seed)
+    card = vae_trainer(tcfg, vcfg, "cuda", seed)
+    for a, b in ((cpu.encoder, card.encoder), (cpu.decoder, card.decoder), (cpu.disc, card.disc)):
+        b.load_state_dict(a.state_dict())
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.rand(2, 3, 32, 32, generator=gen) * 2 - 1
+    errs, faults = {}, []
+    with full_fp32():
+        for i in range(2):
+            noise = torch.randn(2, 4, 16, 16, generator=gen)
+            m_cpu = cpu.step(x, noise)
+            m_card = card.step(x.cuda(), noise.cuda())
+            for k in ("loss", "rec", "kl"):
+                e = abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+                errs[f"step {i} {k}"] = e
+                if not e <= VAE_CARD_TOL:
+                    faults.append(f"step {i} {k}: {m_card[k]} vs {m_cpu[k]}")
+            opt_c, opt_g = (cpu.ae_opt, card.ae_opt) if i == 0 else (cpu.disc_opt, card.disc_opt)
+            top = max(float(mu.abs().max()) for mu in opt_c.mu)
+            mom = max(float((g.cpu() - c).abs().max()) for g, c in zip(opt_g.mu, opt_c.mu)) / top
+            errs[f"step {i} mu"] = mom
+            bad = sum(int(((pg.detach().cpu() - pc.detach()).abs()
+                           > torch.where(mu.abs() / 0.5 >= 1e-5, 1e-3 * tcfg.learning_rate,
+                                         2 * tcfg.learning_rate)).sum())
+                      for pg, pc, mu in zip(opt_g.params, opt_c.params, opt_c.mu))
+            if not mom <= VAE_CARD_TOL or bad:
+                faults.append(f"step {i}: moments {mom:.3e}, {bad} parameters off")
+    log("  small VAE steps, card fp32 vs cpu fp32: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + f" (limit {VAE_CARD_TOL})")
+    if faults:
+        raise SystemExit("the small VAE steps disagree with the CPU: " + "; ".join(faults))
+    return errs
+
+
+def vae_train_run(seed):
+    """``VAEConfig()`` at full width (ch 128, mult 1/2/4/4, bf16 compute by
+    autocast, fp32 parameters) on 576x1024 frames, batch 1, ``disc_start``
+    0: ``VAE_STEPS`` steps, AE and discriminator in turn, each timed by
+    ``utils/profiling.StepTimer``; which modules each step moved."""
+    from vista_tpu_torch.engine.vae_training import VAETrainConfig
+    from vista_tpu_torch.models.vae import VAEConfig
+    from vista_tpu_torch.utils.profiling import StepTimer
+
+    gc.collect()  # the earlier phases' engines and trainers
+    torch.cuda.empty_cache()
+    small = phase("vae_train-reference", vae_reference, seed)
+    tcfg = VAETrainConfig(disc_start=0)
+    trainer = vae_trainer(tcfg, VAEConfig(), "cuda", seed + 31)
+    n = {k: sum(p.numel() for p in getattr(trainer, k).parameters())
+         for k in ("encoder", "decoder", "disc")}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 32)
+    x = torch.rand(1, 3, 576, 1024, generator=gen, device="cuda") * 2 - 1
+    timers = {0.0: StepTimer(), 1.0: StepTimer()}
+    steps, faults = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30  # the modules, their moments, the batch
+    for i in range(VAE_STEPS):
+        noise = torch.randn(1, 4, 72, 128, generator=gen, device="cuda")
+        before = {k: checksums(list(getattr(trainer, k).parameters()))
+                  for k in ("encoder", "decoder", "disc")}
+        which = 1.0 if trainer.trains_disc() else 0.0
+        with timers[which].step() as out:
+            m = out["result"] = trainer.step(x, noise)
+        moved = {k: int((checksums(list(getattr(trainer, k).parameters())) != v).sum())
+                 for k, v in before.items()}
+        steps.append(dict(m, seconds=timers[which].durations[-1], moved=moved))
+        log(f"  VAE step {i} ({'discriminator' if m['which'] else 'autoencoder'}): loss "
+            f"{m['loss']:.5f} (rec {m['rec']:.5f}, kl {m['kl']:.2f}) in "
+            f"{timers[which].durations[-1]:.3f} s; tensors moved {json.dumps(moved)}")
+        if not all(math.isfinite(m[k]) for k in ("loss", "rec", "kl")):
+            faults.append(f"step {i}: non-finite {m}")
+        ae, disc = moved["encoder"] > 0 and moved["decoder"] > 0, moved["disc"] > 0
+        frozen = moved["disc"] == 0 if m["which"] == 0.0 else not (moved["encoder"]
+                                                                   or moved["decoder"])
+        if m["which"] != float(i % 2) or not (ae if m["which"] == 0.0 else disc) or not frozen:
+            faults.append(f"step {i} ({m['which']}) moved {moved}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    report = {("autoencoder" if k == 0.0 else "discriminator"): t.report()
+              for k, t in timers.items()}
+    log(f"  VAE training at 576x1024 (encoder {n['encoder'] / 1e6:.1f} M, image decoder "
+        f"{n['decoder'] / 1e6:.1f} M, discriminator {n['disc'] / 1e6:.2f} M params): "
+        f"autoencoder {report['autoencoder']['mean_s']:.3f} s a step, discriminator "
+        f"{report['discriminator']['mean_s']:.3f} s (StepTimer means of 2; the first of each "
+        f"kind carries cuDNN's algorithm search), peak {peak:.2f} GiB ({held:.2f} GiB held "
+        f"before the first step); card {CARD}")
+    OUT.mkdir(exist_ok=True)
+    (OUT / "vae_train.json").write_text(json.dumps(dict(
+        card=CARD, small=small, params=n, steps=steps, timers=report, peak_gib=peak,
+        held_gib=held), indent=1))
+    del trainer, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    if faults:
+        raise SystemExit("VAE training: " + "; ".join(faults))
+
+
+# ---------------------------------------------------------------- phase 12
+
+TEXT_TOL = SLICE_TOL  # the full-width text tower in bf16 on the card vs fp32 on the CPU
+
+
+def text_tower_check(seed):
+    """The CLIP text tower at full width (ViT-L/14's: 12 layers of 768,
+    vocabulary 49408) on (4, 77) random tokens: the card with its layers in
+    bf16 against the CPU in fp32, hidden states and pooled output."""
+    from vista_tpu_torch.models.clip import CLIPTextConfig, CLIPTextTower
+
+    cfg = CLIPTextConfig()
+    torch.manual_seed(seed)
+    cpu = CLIPTextTower(cfg).eval()
+    card = CLIPTextTower(cfg).cuda().eval()
+    card.load_state_dict(cpu.state_dict())
+    card.encoder.to(cfg.compute_dtype)
+    tokens = torch.randint(0, cfg.vocab_size - 1, (4, cfg.max_length),
+                           generator=torch.Generator().manual_seed(seed + 1))
+    tokens[torch.arange(4), torch.tensor([5, 20, 40, 76])] = cfg.vocab_size - 1
+    with torch.no_grad():
+        ref = cpu(tokens)
+        t0 = time.perf_counter()
+        got = card(tokens.cuda())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    errs = {k: rel_err(g, r) for k, g, r in zip(("hidden", "pooled"), got, ref)}
+    log(f"  CLIP text tower 12x768 on (4, 77) tokens, card bf16 vs cpu fp32: hidden "
+        f"{errs['hidden']:.3e}, pooled {errs['pooled']:.3e} (limit {TEXT_TOL}); {ms:.1f} ms "
+        f"(first call)")
+    if not all(v <= TEXT_TOL for v in errs.values()):
+        raise SystemExit("the CLIP text tower disagrees with the CPU")
+    return errs
+
+
+def quality_run(seed):
+    """``tools/torch_quality_bench.py`` in-process on the card with the full
+    ViT-H tower: ``--calibrate`` at 576x1024 on 2 synthetic clips (it exits
+    non-zero unless FCD rises over the noise and blur grades while PSNR
+    falls), then one harness run (1 clip, 1 round, 5 steps)."""
+    import importlib.util
+
+    from vista_tpu_torch.ops import _build
+
+    text = phase("quality-text", text_tower_check, seed)
+    spec = importlib.util.spec_from_file_location(
+        "torch_quality_bench", Path(__file__).resolve().parent / "tools" / "torch_quality_bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    OUT.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    cal = bench.main(["--calibrate", "--n-clips", "2", "--out", str(OUT / "quality_cal.json")])
+    cal_s = time.perf_counter() - t0
+    faults = [f"{kind}: SSIM does not fall over the grades {c['ssim']}"
+              for kind, c in cal["calibration"].items()
+              if kind != "shuffle" and not c["ssim_monotone_decreasing"]]
+    _build.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = bench.main(["--n-clips", "1", "--n_steps", "5", "--out", str(OUT / "quality.json")])
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(_build.LAUNCHES)
+    missing = missing_launches(SAMPLE_KERNELS + ATTENTION_ROUTES, SAMPLE_SITES)
+    if missing:
+        faults.append(f"kernels or call sites never launched by the harness: {missing}")
+    if run["config"]["backend"] != torch.cuda.get_device_name(0):
+        faults.append(f"the harness ran on {run['config']['backend']}")
+    log(f"  quality calibration at 576x1024 (2 clips x 25 frames): {cal_s:.3f} s; FCD noise "
+        f"{cal['calibration']['noise']['fcd']}, blur {cal['calibration']['blur']['fcd']}, "
+        f"shuffle {cal['calibration']['shuffle']['fcd']}; validated {cal['validated']}")
+    log(f"  quality harness (1 clip, 1 round of 5 steps, own random weights): {run_s:.3f} s "
+        f"(rollout {run['rollout_timing']['mean_s']:.3f} s), FCD "
+        f"{run['frechet_clip_distance']}, PSNR {run['psnr_db']} dB, SSIM {run['ssim']}; "
+        f"peak {peak:.2f} GiB; backend {run['config']['backend']}")
+    (OUT / "quality_phase.json").write_text(json.dumps(dict(
+        card=CARD, text=text, calibrate_s=cal_s, run_s=run_s, peak_gib=peak,
+        launches=launches), indent=1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    if faults:
+        raise SystemExit("quality: " + "; ".join(faults))
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2312,16 +2782,20 @@ def main():
     log("kernel vs plain (fp32 on the same bf16 inputs):")
     rows = phase("kernels", kernel_checks)
     sample = phase("slice", slice_run, args.seed, args.profile)
+    modes = phase("sampling_modes", sampling_modes_run, args.seed)
     rollout = phase("rollout", rollout_run, args.seed)
     train = phase("train", train_run, args.seed)
     gc.collect()  # the phase-2 engine and trainer, before the next ones
     torch.cuda.empty_cache()
-    train_cli = phase("train_cli", train_cli_run, args.seed)
+    train_cli = phase("train_cli", train_cli_run, args.seed, convert_run)
     phase1 = phase("phase1", phase1_run, args.seed)
+    phase("vae_train", vae_train_run, args.seed)
+    quality = phase("quality", quality_run, args.seed)
 
     kernels = []
-    paths = {"sample": sample, "rollout": rollout["rollout"], "reward": rollout["reward"],
-             "train": train, "train_cli": train_cli, "phase1": phase1}
+    paths = {"sample": sample, "sampling_modes": modes, "rollout": rollout["rollout"],
+             "reward": rollout["reward"], "train": train, "train_cli": train_cli["train_cli"],
+             "convert": train_cli["convert"], "phase1": phase1, "quality": quality}
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         timed = mine[0]  # the first (largest) main-path shape of the kernel

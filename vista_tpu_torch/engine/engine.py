@@ -12,7 +12,8 @@ package ties the two). Latents are ``(n, z, h, w)`` (NCHW, frame-major).
   (c, uc) pair sampling takes, uc with ``UC_ZERO_KEYS`` zeroed;
 - ``decode_first_stage``: windows of ``decode_chunk`` frames sharing
   ``decode_overlap`` frames, the seams averaged, one window after the other;
-- ``sample``: one sampling pass (Euler-EDM).
+- ``sample``: one sampling pass (Euler-EDM; batched or sequential CFG,
+  stochastic churn from the caller's noise).
 
 The engine runs on the card unless the caller asks for the CPU: building it
 on ``"cuda"`` without one raises.
@@ -26,7 +27,7 @@ from typing import Dict, FrozenSet, Mapping, Optional, Tuple
 import torch
 
 from vista_tpu_torch.diffusion.denoiser import precondition_denoise
-from vista_tpu_torch.diffusion.sampler import SamplerConfig, sample_euler_edm
+from vista_tpu_torch.diffusion.sampler import ChurnNoise, SamplerConfig, sample_euler_edm
 from vista_tpu_torch.diffusion.scaling import get_scaling
 from vista_tpu_torch.models.conditioner import ConditionerConfig, GeneralConditioner
 from vista_tpu_torch.models.unet import VideoUNet, VideoUNetConfig
@@ -167,8 +168,12 @@ class VistaEngine:
                uc: Optional[Dict[str, torch.Tensor]] = None,
                cond_frame: Optional[torch.Tensor] = None,
                cond_mask: Optional[torch.Tensor] = None,
-               sampler: SamplerConfig = SamplerConfig()) -> torch.Tensor:
-        """One sampling pass over ``num_frames`` latents."""
+               sampler: SamplerConfig = SamplerConfig(),
+               churn_noise: Optional[ChurnNoise] = None) -> torch.Tensor:
+        """One sampling pass over ``num_frames`` latents. ``churn_noise``
+        (the JAX ``key``'s counterpart: a callable ``i -> eps`` or a
+        ``torch.Generator``) feeds the stochastic churn of ``s_churn > 0``."""
         return sample_euler_edm(self.denoise_fn(), noise, cond, uc,
                                 cond_frame=cond_frame, cond_mask=cond_mask,
-                                config=sampler, num_frames=self.cfg.num_frames)
+                                config=sampler, num_frames=self.cfg.num_frames,
+                                churn_noise=churn_noise)

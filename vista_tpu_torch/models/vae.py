@@ -1,5 +1,6 @@
-"""Vista's VAE: the image encoder, the diagonal-Gaussian helpers and the
-temporal decoder (counterpart of ``vista_tpu/models/vae.py``).
+"""Vista's VAE: the image encoder, the diagonal-Gaussian helpers (KL
+included), the image decoder that VAE training reconstructs through, and
+the temporal decoder (counterpart of ``vista_tpu/models/vae.py``).
 
 The encoder maps pixels ``(n, 3, H, W)`` to fp32 Gaussian moments
 ``(n, 2z, H/8, W/8)``; it is frozen, and per-frame, so callers chunk it over
@@ -11,10 +12,14 @@ ResnetBlock carries a ``(3, 1, 1)`` temporal conv branch blended with a
 learned ``alpha = sigmoid(mix_factor)`` as ``alpha * x_t + (1 - alpha) * x``,
 and the output conv adds a 3-D ``time_mix_conv``. Images are held
 channels-last; the frame convs see ``(b, c, t, h, w)`` channels-last-3d
-views. The decoder owes no hand-written kernel: its convs and its mid-block
-single-head attention are plain PyTorch (the JAX package left them to XLA),
-and the attention is explicit ``matmul``/``softmax`` with fp32 scores.
-Parameter names follow ``vista_tpu/utils/torch_import.py:vae_decoder_key_map``.
+views. The VAE owes no hand-written kernel: its convs and its mid-block
+attention are plain PyTorch (the JAX package left them to XLA). The mid-block
+attention is ``make_attn``'s choice of ``cfg.attn_type``: ``"vanilla"``
+(shipped; single-head, explicit ``matmul``/``softmax`` with fp32 scores),
+``"linear"`` (k-softmax over tokens, ``(k vᵀ) q``, no residual add) or
+``"none"`` (the identity). Parameter names follow
+``vista_tpu/utils/torch_import.py``'s ``vae_encoder_key_map`` and
+``vae_decoder_key_map`` (``video=False`` for :class:`VAEDecoder`).
 """
 
 from __future__ import annotations
@@ -136,10 +141,42 @@ class VAEAttnBlock(nn.Module):
         q, k, v = rows(self.q(y)), rows(self.k(y)), rows(self.v(y))
         out = torch.empty_like(q)
         for i in range(b):  # one frame at a time bounds the (s, s) scores
-            s = torch.matmul(q[i].float(), k[i].float().t()) * (c ** -0.5)
+            with torch.autocast(x.device.type, enabled=False):  # fp32 scores under autocast too
+                s = torch.matmul(q[i].float(), k[i].float().t()) * (c ** -0.5)
             out[i] = torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v[i])
         out = out.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return x + self.proj_out(out)
+
+
+class VAELinearAttnBlock(nn.Module):
+    """Single-head linear attention (upstream ``LinAttnBlock``): a bias-free
+    1x1 ``to_qkv``, the keys softmaxed over the tokens, ``out = (k vᵀ) q``,
+    a 1x1 ``to_out``, and no residual add."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.to_qkv = nn.Conv2d(channels, 3 * channels, 1, bias=False)
+        self.to_out = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        q, k, v = self.to_qkv(x).reshape(b, 3, c, h * w).unbind(1)
+        k = torch.softmax(k.float(), dim=-1).to(q.dtype)
+        context = torch.einsum("bdn,ben->bde", k, v)
+        out = torch.einsum("bde,bdn->ben", context, q)
+        return self.to_out(out.reshape(b, c, h, w))
+
+
+def make_attn(attn_type: str, channels: int) -> nn.Module:
+    """The mid-block attention of ``attn_type`` (``"vanilla"`` and
+    ``"vanilla-xformers"`` are one block)."""
+    if attn_type in ("vanilla", "vanilla-xformers"):
+        return VAEAttnBlock(channels)
+    if attn_type == "linear":
+        return VAELinearAttnBlock(channels)
+    if attn_type == "none":
+        return nn.Identity()
+    raise ValueError(f"attn_type `{attn_type}` unknown")
 
 
 class VAEDownsample(nn.Module):
@@ -183,8 +220,6 @@ class VideoVAEDecoder(nn.Module):
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
-        if cfg.attn_type not in ("vanilla", "vanilla-xformers"):
-            raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not ported yet")
         if tuple(cfg.video_kernel) != (3, 1, 1):
             raise NotImplementedError("only the (3, 1, 1) temporal kernel is ported")
         self.cfg = cfg
@@ -192,7 +227,7 @@ class VideoVAEDecoder(nn.Module):
         self.conv_in = nn.Conv2d(cfg.z_channels, block_in, 3, padding=1)
         self.mid = _Level()
         self.mid.block_1 = VideoResnetBlock(block_in, block_in)
-        self.mid.attn_1 = VAEAttnBlock(block_in)
+        self.mid.attn_1 = make_attn(cfg.attn_type, block_in)
         self.mid.block_2 = VideoResnetBlock(block_in, block_in)
         levels = []
         in_ch = block_in
@@ -225,6 +260,48 @@ class VideoVAEDecoder(nn.Module):
         return self.conv_out(h, num_frames).float()
 
 
+class VAEDecoder(nn.Module):
+    """The image decoder, ``decoder(z)``: latents ``(n, z, h, w)`` -> fp32
+    pixels ``(n, 3, 8h, 8w)`` (upstream keys ``conv_in``,
+    ``mid.{block_1,attn_1,block_2}``, ``up.{l}.block.{i}``,
+    ``up.{l}.upsample``, ``norm_out``, ``conv_out``)."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        block_in = cfg.ch * cfg.ch_mult[-1]
+        self.conv_in = nn.Conv2d(cfg.z_channels, block_in, 3, padding=1)
+        self.mid = _Level()
+        self.mid.block_1 = VAEResnetBlock(block_in, block_in)
+        self.mid.attn_1 = make_attn(cfg.attn_type, block_in)
+        self.mid.block_2 = VAEResnetBlock(block_in, block_in)
+        levels, in_ch = [], block_in
+        for level in reversed(range(len(cfg.ch_mult))):
+            out_ch = cfg.ch * cfg.ch_mult[level]
+            up = _Level()
+            up.block = nn.ModuleList()
+            for _ in range(cfg.num_res_blocks + 1):
+                up.block.append(VAEResnetBlock(in_ch, out_ch))
+                in_ch = out_ch
+            if level != 0:
+                up.upsample = VAEUpsample(in_ch)
+            levels.insert(0, up)
+        self.up = nn.ModuleList(levels)
+        self.norm_out = GroupNorm32(in_ch, eps=1e-6)
+        self.conv_out = nn.Conv2d(in_ch, cfg.out_channels, 3, padding=1)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(z.to(self.cfg.compute_dtype).contiguous(
+            memory_format=torch.channels_last))
+        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
+        for level in reversed(range(len(self.up))):
+            for block in self.up[level].block:
+                h = block(h)
+            if level != 0:
+                h = self.up[level].upsample(h)
+        return self.conv_out(F.silu(self.norm_out(h))).float()
+
+
 class VAEEncoder(nn.Module):
     """``encoder(x)``: pixels ``(n, 3, H, W)`` -> fp32 moments ``(n, 2z, h, w)``
     (upstream keys ``conv_in``, ``down.{l}.block.{i}``, ``down.{l}.downsample``,
@@ -232,8 +309,6 @@ class VAEEncoder(nn.Module):
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
-        if cfg.attn_type not in ("vanilla", "vanilla-xformers"):
-            raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not ported yet")
         self.cfg = cfg
         self.conv_in = nn.Conv2d(cfg.in_channels, cfg.ch, 3, padding=1)
         levels, in_ch = [], cfg.ch
@@ -249,7 +324,7 @@ class VAEEncoder(nn.Module):
         self.down = nn.ModuleList(levels)
         self.mid = _Level()
         self.mid.block_1 = VAEResnetBlock(in_ch, in_ch)
-        self.mid.attn_1 = VAEAttnBlock(in_ch)
+        self.mid.attn_1 = make_attn(cfg.attn_type, in_ch)
         self.mid.block_2 = VAEResnetBlock(in_ch, in_ch)
         self.norm_out = GroupNorm32(in_ch, eps=1e-6)
         out_ch = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
@@ -281,3 +356,10 @@ def gaussian_sample(moments: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
 
 def gaussian_mode(moments: torch.Tensor) -> torch.Tensor:
     return gaussian_split(moments)[0]
+
+
+def gaussian_kl(moments: torch.Tensor) -> torch.Tensor:
+    """KL(q || N(0, I)) per example, summed over the latent dims."""
+    mean, logvar = gaussian_split(moments)
+    kl = 0.5 * (mean**2 + torch.exp(logvar) - 1.0 - logvar)
+    return kl.reshape(kl.shape[0], -1).sum(dim=-1)
