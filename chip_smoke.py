@@ -2770,12 +2770,320 @@ def quality_run(seed):
     return launches
 
 
+# ---------------------------------------------------------------- phase 13
+
+# the sample CLI's round: 576x1024, 25 frames, one round of 5 steps
+PARALLEL_SAMPLE_ARGV = ["--n_rounds", "1", "--n_steps", "5", "--height", "576",
+                        "--width", "1024"]
+PARALLEL_MODES = ("frames", "weights")
+# the train CLI on the phase-1 recipe: 4 micro-steps (2 updates at accum 2)
+# with the phase1 phase's warm-up (the full rate from update 0), the losses
+# of every step in the CSV, one decoder thread (two hand the batches out in
+# either order)
+PARALLEL_TRAIN_OVERRIDES = ["run.max_steps=4", "run.log_every=1", "train.warmup_steps=0",
+                            "data.num_threads=1", "parallel.data=1"]
+# sampling: frames at one rank changes only the order of the temporal
+# GroupNorm sums; held, as the small slice's bf16 run, to 5e-2 of the
+# largest latent
+PARALLEL_FRAMES_TOL = 5e-2
+
+
+def parallel_train_argv(logdir):
+    return ["--base", str(CONFIGS / "vista_phase1.yaml"), "--synthetic-data",
+            f"run.logdir={logdir}", *PARALLEL_TRAIN_OVERRIDES]
+
+
+def parallel_sample_worker(seed):
+    """Under torch.distributed.run: the sample CLI's mesh (``--mesh-data 1``,
+    NCCL), one engine of seeded random weights, and the CLI's ``run`` in
+    ``frames`` and ``weights`` mode and without a mesh."""
+    import tempfile
+
+    from vista_tpu_torch.cli import sample as sample_cli
+    from vista_tpu_torch.cli._common import engine_config
+    from vista_tpu_torch.engine.engine import VistaEngine
+    from vista_tpu_torch.ops import _build
+
+    save = Path(tempfile.mkdtemp(prefix="vista_parallel_sample_"))
+    base = PARALLEL_SAMPLE_ARGV + ["--save", str(save)]
+    args = {m: sample_cli.parse_args(base + ["--mesh-data", "1", "--mesh-mode", m])
+            for m in PARALLEL_MODES}
+    mesh = sample_cli.sample_mesh(args["frames"])
+    args["none"] = sample_cli.parse_args(base)
+    for a in args.values():
+        a.device = args["frames"].device
+    engine = VistaEngine(engine_config(args["none"]), args["none"].device)
+    init_engine(engine, torch.Generator(device=engine.device).manual_seed(seed + 11))
+    runs, latents = {}, {}
+    for mode in (*PARALLEL_MODES, "none"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        out = sample_cli.run(args[mode], engine, None if mode == "none" else mesh)
+        torch.cuda.synchronize()
+        latents[mode] = out["latents"]
+        runs[mode] = dict(seconds=time.perf_counter() - t0,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          launches=dict(_build.LAUNCHES), sites=dict(_build.SITES),
+                          finite=bool(torch.isfinite(out["latents"]).all()),
+                          shape=list(out["latents"].shape))
+    shutil.rmtree(save)
+    ref = latents["none"]
+    for mode in PARALLEL_MODES:
+        runs[mode]["bit_identical"] = bool(torch.equal(latents[mode], ref))
+        runs[mode]["max_abs_diff"] = float((latents[mode] - ref).abs().max())
+    runs["latents_max"] = float(ref.abs().max())
+    return runs
+
+
+def train_summary(runner, seconds, stages):
+    """What a train CLI run is compared on: the losses of its steps, one
+    checksum per master, its host seconds a step and of its stages, and the
+    launch counts."""
+    import csv
+
+    from vista_tpu_torch.ops import _build
+
+    with open(Path(runner.cfg.run.logdir) / "metrics.csv", newline="") as f:
+        rows = [r for r in csv.DictReader(f) if r.get("loss")]
+    return dict(seconds=seconds, stages=stages, losses=[float(r["loss"]) for r in rows],
+                grad_norms=[float(r["grad_norm"]) for r in rows],
+                step_s=[s for _, s in runner.step_times],
+                masters=checksums(list(runner.trainer.master.values())).tolist(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches=dict(_build.LAUNCHES), sites=dict(_build.SITES))
+
+
+def parallel_train():
+    """The train CLI's ``main`` on the phase-1 recipe (see
+    ``PARALLEL_TRAIN_OVERRIDES``) without its image logs (steps 1, 2 and 4:
+    45 s a run at 576x1024; the ``train_cli`` phase checks them) and without
+    its checkpoints (a 35 GB file, 40-55 s, that slices nothing at one rank;
+    the CPU tests hold checkpoints across meshes), in a temporary run
+    directory deleted after."""
+    import tempfile
+
+    from vista_tpu_torch import runner as runner_mod
+    from vista_tpu_torch.cli import train as train_cli
+    from vista_tpu_torch.engine.engine import VistaEngine
+    from vista_tpu_torch.ops import _build
+
+    tmp = Path(tempfile.mkdtemp(prefix="vista_parallel_train_"))
+    logdir = tmp / "run"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    times = StageTimes([(VistaEngine, ("__init__",))])
+    stubbed = {name: getattr(runner_mod.Runner, name) for name in ("log_images", "save_checkpoint")}
+    runner_mod.Runner.log_images = lambda self, batch: None
+    runner_mod.Runner.save_checkpoint = lambda self, tag=None: None
+    t0 = time.perf_counter()
+    try:
+        runner = train_cli.main(parallel_train_argv(logdir))
+    finally:
+        for name, f in stubbed.items():
+            setattr(runner_mod.Runner, name, f)
+        times.close()
+    torch.cuda.synchronize()
+    stages = {}
+    for name, s, _ in times.take():
+        stages[name] = stages.get(name, 0.0) + s
+    out = train_summary(runner, time.perf_counter() - t0, stages)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    return out
+
+
+PARALLEL_WORKERS = {"sample": parallel_sample_worker, "train": lambda seed: parallel_train()}
+
+
+def torchrun(kind, seed):
+    """``chip_smoke.py --parallel-worker kind`` as one process under
+    ``python -m torch.distributed.run --standalone``: the CLIs join a
+    one-rank NCCL group from torchrun's environment. Returns the worker's
+    table; its output lands in ``chiprun_out/parallel_<kind>.log``."""
+    table = OUT / f"parallel_{kind}.json"
+    table.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", str(Path(__file__).resolve()), "--parallel-worker", kind, "--seed", str(seed)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    (OUT / f"parallel_{kind}.log").write_text(proc.stdout + "\n---- stderr\n" + proc.stderr)
+    if proc.returncode != 0 or not table.exists():
+        raise SystemExit(f"parallel {kind}: the torchrun worker exited {proc.returncode}:\n"
+                         + proc.stderr[-3000:])
+    out = json.loads(table.read_text())
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+# the temporal sites of the 576x1024 sampling batch (2 x 25 frames) whose
+# tokens a frame-parallel split over PARALLEL_SPLIT ranks cuts unevenly
+PARALLEL_SPLIT = 5
+PARALLEL_SITES = (("ds1", 9216, 320, 5), ("mid", 144, 1280, 20))
+
+
+def sharded_shape_checks(seed):
+    """The temporal kernels at the local shapes of a frame-parallel split of
+    the sampling batch over ``PARALLEL_SPLIT`` ranks (one card cannot run
+    the ranks; their shapes it can): each rank's tokens of all 25 frames of
+    both CFG halves, 1844 / 1843 of 9216 at ds1, 29 / 28 of 144 at the mid
+    block. K4 (``emb`` and ``res``) on frame-major rows ``(50, s, c)``; K2
+    split, K1's short route and K3 on the temporal sequences ``(2 s, 25,
+    c)``; each against its plain version in fp32 on the same bf16 inputs,
+    to ``TOL``."""
+    from vista_tpu_torch.ops.attention import attention_forward, attention_plain
+    from vista_tpu_torch.ops.fused_qkv import fused_ln_qkv
+    from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_plain,
+                                            ln_linear_plain)
+    from vista_tpu_torch.ops.temporal_conv import gn_silu_conv3, gn_silu_conv3_plain
+    from vista_tpu_torch.parallel.mesh import token_splits
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    rnd = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device="cuda") * scale
+    bf = lambda t: t.to(torch.bfloat16)
+    rows, t = [], 25
+    for site, s, c, heads in PARALLEL_SITES:
+        for s_me in sorted(set(token_splits(s, PARALLEL_SPLIT)), reverse=True):
+            x = bf(rnd(2 * t, s_me, c))
+            sc, sh = 1.0 + 0.1 * rnd(2 * t, c), 0.1 * rnd(2 * t, c)
+            w, b = bf(rnd(c, c, 3, 1, 1, scale=(3 * c) ** -0.5)), 0.02 * rnd(c)
+            emb, res, rs = 0.1 * rnd(2 * t, c), bf(rnd(2 * t, s_me, c)), rnd(1).abs()
+            for kind, kw in (("emb", dict(emb=emb)), ("res", dict(residual=res, res_scale=rs))):
+                got = gn_silu_conv3(x, sc, sh, w, b, t, **kw)
+                with full_fp32():
+                    ref = gn_silu_conv3_plain(x.float(), sc, sh, w.float(), b, t,
+                                              **{k: v.float() for k, v in kw.items()})
+                rows.append((f"gn_silu_conv3 {kind} {site} (50,{s_me},{c})", got, ref))
+            seq = bf(rnd(2 * s_me, t, c))
+            ln_w, ln_b = 1.0 + 0.1 * rnd(c), 0.1 * rnd(c)
+            wq, wk, wv, wo = (bf(rnd(c, c, scale=c ** -0.5)) for _ in range(4))
+            bo = 0.02 * rnd(c)
+            q, k, v = fused_ln_qkv(seq, ln_w, ln_b, wq, wk, wv, 1e-5, site="temporal-qkv")
+            o = attention_forward(q, k, v, heads, site="temporal")
+            out = linear_residual(o, wo, bo, seq, site="temporal-out")
+            with full_fp32():
+                rq, rk, rv = ln_linear_plain(seq.float(), ln_w, ln_b,
+                                             torch.cat([wq, wk, wv]).float(), None, "split", 3)
+                ro = attention_plain(q.float(), k.float(), v.float(), heads)
+                rout = linear_residual_plain(o.float(), wo.float(), bo, seq.float())
+            shape = f"({2 * s_me},{t},{c})"
+            rows += [(f"ln_linear temporal-qkv {site} {shape}", torch.stack([q, k, v]),
+                      torch.stack([rq, rk, rv])),
+                     (f"attention temporal {site} {shape}", o, ro),
+                     (f"linear_residual temporal-out {site} {shape}", out, rout)]
+    table, faults = [], []
+    for name, got, ref in rows:
+        rel = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+        table.append(dict(check=name, rel_err=rel))
+        log(f"  {name:48s} rel {rel:.2e}  {'ok' if rel <= TOL else 'FAIL'}")
+        if not (math.isfinite(rel) and rel <= TOL):
+            faults.append(name)
+    if faults:
+        raise SystemExit(f"parallel: kernels off at the split's local shapes: {faults}")
+    return table
+
+
+def parallel_run(seed):
+    """The CLIs under torch.distributed.run at world size 1 over NCCL: the
+    sample CLI in ``frames`` and ``weights`` mode against the same round
+    without a mesh, and the train CLI on the phase-1 recipe with
+    ``parallel.data=1`` against the same steps without a group (in this
+    process). No multi-GPU speed exists here: one card."""
+    OUT.mkdir(exist_ok=True)
+    local = sharded_shape_checks(seed)
+    gc.collect()  # the earlier phases' engines and trainers: the workers need the card
+    torch.cuda.empty_cache()
+    log(f"  device memory held by this process before the workers: "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    sample = torchrun("sample", seed)
+    faults = []
+    none = sample["none"]
+    log(f"  sample CLI, 576x1024, 25 frames, 1 round of 5 steps, without a mesh: "
+        f"{none['seconds']:.3f} s, peak {none['peak_gib']:.2f} GiB")
+    for mode in PARALLEL_MODES:
+        r = sample[mode]
+        log(f"  sample CLI --mesh-data 1 --mesh-mode {mode} (torchrun, NCCL): "
+            f"{r['seconds']:.3f} s, peak {r['peak_gib']:.2f} GiB; latents "
+            + ("bit-identical to" if r["bit_identical"] else
+               f"max |diff| {r['max_abs_diff']:.4e} (largest latent "
+               f"{sample['latents_max']:.3f}) from")
+            + " the round without a mesh")
+        log(f"    launches: {json.dumps(r['launches'], sort_keys=True)}")
+        if not r["finite"] or r["shape"] != none["shape"]:
+            faults.append(f"{mode}: latents {r['shape']} not finite or not {none['shape']}")
+        missing = [k for k in SAMPLE_KERNELS + ATTENTION_ROUTES if not r["launches"].get(k)]
+        if missing:
+            faults.append(f"{mode}: kernels never launched: {missing}")
+    if sample["frames"]["max_abs_diff"] > PARALLEL_FRAMES_TOL * sample["latents_max"]:
+        faults.append(f"frames at one rank: {sample['frames']['max_abs_diff']:.4e} from the "
+                      f"round without a mesh, over {PARALLEL_FRAMES_TOL} of the largest latent")
+    if not sample["weights"]["bit_identical"]:
+        faults.append("weights mode at one rank gathers the same weights: its latents must be "
+                      "bit-identical to the round without a mesh")
+
+    train = torchrun("train", seed)
+    ref = parallel_train()
+    phase1 = json.loads((OUT / "phase1.json").read_text()) if (OUT / "phase1.json").exists() \
+        else {}
+    same_losses = train["losses"] == ref["losses"]
+    differ = sum(a != b for a, b in zip(train["masters"], ref["masters"]))
+    for name, r in (("torchrun, NCCL, parallel.data=1", train), ("no group", ref)):
+        log(f"  train CLI, phase-1 recipe, 4 micro-steps ({name}): losses "
+            f"{r['losses']}, host seconds a step {[round(x, 3) for x in r['step_s']]}, "
+            f"peak {r['peak_gib']:.2f} GiB; {r['seconds']:.1f} s in all: "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in r["stages"].items()))
+    log(f"  phase1 phase (the Trainer alone): {phase1.get('s_per_micro_step', float('nan')):.3f} "
+        f"s a micro-step")
+    log(f"  losses {'identical' if same_losses else 'differ'}; masters: {differ} of "
+        f"{len(ref['masters'])} checksums differ")
+    log(f"    launches (torchrun): {json.dumps(train['launches'], sort_keys=True)}")
+    if len(train["losses"]) != 4 or not all(math.isfinite(x) for x in train["losses"]):
+        faults.append(f"train: losses {train['losses']}")
+    # world size 1: the gradient mean divides by 1 and no state is sliced, and
+    # one data thread fixes the batches, so the run must repeat the bits
+    if not same_losses or differ or len(train["masters"]) != len(ref["masters"]):
+        faults.append(f"train under torchrun: losses {'identical' if same_losses else 'differ'}, "
+                      f"{differ} of {len(ref['masters'])} master checksums differ from the run "
+                      f"without a group")
+    missing = [k for k in PHASE1_KERNELS + ATTENTION_ROUTES + ATTENTION_BWD_ROUTES
+               if not train["launches"].get(k)]
+    if missing:
+        faults.append(f"train: kernels never launched: {missing}")
+    (OUT / "parallel.json").write_text(json.dumps(dict(
+        card=CARD, local_shapes=local, sample=sample, train=train, train_no_group=ref,
+        phase1_s_per_micro_step=phase1.get("s_per_micro_step"), masters_differ=differ,
+        losses_identical=same_losses), indent=1))
+    if faults:
+        raise SystemExit("parallel: " + "; ".join(faults))
+    return {"parallel_sample_frames": sample["frames"]["launches"],
+            "parallel_sample_weights": sample["weights"]["launches"],
+            "parallel_train": train["launches"]}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one 576x1024 request (2 steps) with torch.profiler")
+    ap.add_argument("--parallel-worker", choices=sorted(PARALLEL_WORKERS),
+                    help=argparse.SUPPRESS)  # the parallel phase's torchrun worker
     args = ap.parse_args()
+    if args.parallel_worker:
+        import torch.distributed as dist
+
+        from vista_tpu_torch.ops import _build
+
+        card_check()
+        _build.build()  # the main process built them: loads build/'s library
+        table = PARALLEL_WORKERS[args.parallel_worker](args.seed)
+        OUT.mkdir(exist_ok=True)
+        (OUT / f"parallel_{args.parallel_worker}.json").write_text(json.dumps(table, indent=1))
+        dist.destroy_process_group()
+        return
 
     phase("card", card_check)
     phase("build", build)
@@ -2789,13 +3097,14 @@ def main():
     torch.cuda.empty_cache()
     train_cli = phase("train_cli", train_cli_run, args.seed, convert_run)
     phase1 = phase("phase1", phase1_run, args.seed)
+    parallel = phase("parallel", parallel_run, args.seed)
     phase("vae_train", vae_train_run, args.seed)
     quality = phase("quality", quality_run, args.seed)
 
     kernels = []
     paths = {"sample": sample, "sampling_modes": modes, "rollout": rollout["rollout"],
              "reward": rollout["reward"], "train": train, "train_cli": train_cli["train_cli"],
-             "convert": train_cli["convert"], "phase1": phase1, "quality": quality}
+             "convert": train_cli["convert"], "phase1": phase1, **parallel, "quality": quality}
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         timed = mine[0]  # the first (largest) main-path shape of the kernel

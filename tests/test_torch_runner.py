@@ -15,7 +15,8 @@
   columns, ``grad_norm`` or ``grad_norm_trained`` by policy, images,
   checkpoint, ``--resume`` appending to the CSV), the module entry point,
   and the card default raising without one;
-- the signal handlers' flags, and the one-card ``parallel`` rule.
+- the signal handlers' flags, and the ``parallel`` mesh without a process
+  group (one rank).
 """
 
 import csv
@@ -325,5 +326,7 @@ def test_fit_stops_on_sigterm_and_restores_handlers(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("par", ["parallel.data=2", "parallel.fsdp=2"])
 def test_one_card_only(tmp_path, par):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """Without a process group the mesh is one rank: two raise, naming the
+    rank count, as ``make_mesh`` does with too few devices."""
+    with pytest.raises(ValueError, match=r"needs 2 ranks, have 1|^1 ranks not divisible by 2"):
         runner.Runner(_tiny_cfg(tmp_path, par), device="cpu")

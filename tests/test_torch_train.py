@@ -15,6 +15,22 @@ whose gradient is near 1e-8 moves by a fraction of lr that depends on the
 last bits of g; measured 2.7e-5 at lr 1e-3), and that every
 frozen parameter is unchanged. Also ``lr_mult`` for all three policies
 against ``lr_mult_tree`` through the key map.
+
+The same step at ``(data 2, fsdp 1)`` on 2 gloo ranks (``tests/torch_ranks.py``,
+started before the JAX step compiles) on a global batch of 2 videos, the
+first the one above: each rank's step alone on its video against
+``make_train_step`` on that video (its draws from keys 32 and 33), and the
+data-parallel step against ``make_train_step`` on the global batch, at the
+bounds above. The JAX step runs here at one video only (its compile takes
+most of this file's time), so its global step is built from those two: the
+loss terms are means over the videos (``diffusion_loss`` normalises each
+video's dynamics weight on its own), so its gradient is the mean of theirs,
+each unclipped (``clip_by_global_norm`` scaled it by ``grad_clip / norm``
+when the norm passed ``grad_clip``; the norm is the rank's, held by the
+check of that video's clipped gradient), and ``tx`` and ``ema_update``
+apply it. Where the global gradient is within 100 eps (``well_posed``) the
+update is held to 2 lr: there the step follows the gradient's last bits
+(0.15 lr measured at |g| = 7.5e-9, a gradient 1e-5 of the largest).
 """
 
 import dataclasses
@@ -25,15 +41,20 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import optax
 
 from tests.torch_threads import one_thread  # noqa: F401
 from tests.test_torch_conditioner import H, W, build, jax_ucg_keep, nchw
+from tests.torch_parallel_ranks import data_parallel_step
+from tests.torch_ranks import start_ranks
+from vista_tpu.engine.ema import ema_update
 from vista_tpu.diffusion.loss import LossConfig as JLossConfig
 from vista_tpu.engine.training import TrainConfig as JTrainConfig
 from vista_tpu.engine.training import create_train_state, lr_mult_tree, make_train_step
 from vista_tpu.models.unet import VideoUNet as JVideoUNet
 from vista_tpu.models.unet import VideoUNetConfig as JVideoUNetConfig
 from vista_tpu.utils import torch_import as ti
+from vista_tpu.utils.checkpoint import export_vista_checkpoint
 from vista_tpu_torch.diffusion.loss import LossConfig, LossDraws
 from vista_tpu_torch.engine.training import TrainConfig, TrainDraws, Trainer, lr_mult
 from vista_tpu_torch.models.unet import VideoUNet, VideoUNetConfig
@@ -79,10 +100,24 @@ def _jax_draws(jeng, batch, key, cfg):
                        noise=nchw(jax.random.normal(k_noise, lat))))
 
 
+def _cat_draws(a: TrainDraws, b: TrainDraws) -> TrainDraws:
+    """The draws of two batches as those of one, ``a``'s rows first."""
+    cat = lambda x, y: torch.cat([x, y])
+    return TrainDraws(posterior=cat(a.posterior, b.posterior), cond_aug=cat(a.cond_aug, b.cond_aug),
+                      ucg_keep={k: cat(v, b.ucg_keep[k]) for k, v in a.ucg_keep.items()},
+                      loss=LossDraws(sigma_normal=cat(a.loss.sigma_normal, b.loss.sigma_normal),
+                                     choice=cat(a.loss.choice, b.loss.choice),
+                                     noise=cat(a.loss.noise, b.loss.noise)))
+
+
+def _torch_batch(batch):
+    out = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out["frames"] = out["frames"].permute(0, 1, 4, 2, 3).contiguous()
+    return out
+
+
 def _adam_mu(opt_state, params):
     """The first Adam moment of the trained leaves, zeros for the frozen ones."""
-    import optax
-
     mu = optax.tree_utils.tree_get(opt_state, "mu")
     masked = lambda x: type(x).__name__ == "MaskedNode"
     return jax.tree.map(lambda m, p: np.zeros(p.shape, np.float32) if masked(m) else m,
@@ -97,27 +132,58 @@ def step():
     pcfg = TrainConfig(**OPT, loss=LossConfig(num_frames=t, **LOSS))
     batch = _batch(t)
     key = jax.random.key(32)
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    draws = _jax_draws(jeng, batch, key, jcfg)
+    # the data-parallel step's second video and its draws; its ranks run
+    # while the JAX step compiles
+    video2, key2 = {k: v[1:] for k, v in _batch(t, b=2).items()}, jax.random.key(33)
+    ranks = start_ranks(data_parallel_step, 2, (
+        export_vista_checkpoint(params, jeng.cfg), port.cfg, pcfg,
+        _torch_batch({k: np.concatenate([v, video2[k]]) for k, v in batch.items()}),
+        _cat_draws(draws, _jax_draws(jeng, video2, key2, jcfg))))
+
     state, tx = create_train_state(jcfg, params)
     frozen = {k: v for k, v in params.items() if k != "unet"}
-    new_state, metrics = jax.jit(make_train_step(jeng, jcfg, tx))(state, frozen, jbatch, key)
-    clipped = jax.tree.map(lambda m: np.asarray(m) / (1.0 - jcfg.beta1),
-                           _adam_mu(new_state.opt_state, params["unet"]))
+    jstep = jax.jit(make_train_step(jeng, jcfg, tx))
+    clipped_of = lambda s: jax.tree.map(lambda m: np.asarray(m) / (1.0 - jcfg.beta1),
+                                        _adam_mu(s.opt_state, params["unet"]))
+    new_state, metrics = jstep(state, frozen, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    new2, metrics2 = jstep(state, frozen, {k: jnp.asarray(v) for k, v in video2.items()}, key2)
+    clipped = clipped_of(new_state)
 
     before = {k: v.clone() for k, v in port.unet.state_dict().items()}
     trainer = Trainer(port, pcfg)
-    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    tb["frames"] = torch.from_numpy(batch["frames"]).permute(0, 1, 4, 2, 3).contiguous()
-    draws = _jax_draws(jeng, batch, key, jcfg)
-    loss, aux = trainer.loss_and_grads(tb, draws)
+    loss, aux = trainer.loss_and_grads(_torch_batch(batch), draws)
     port_grads = trainer.grads()
     norm = trainer.apply()
     clip = min(1.0, pcfg.grad_clip / norm)
     export = lambda tree: ti.export_key_map(tree, ti.unet_key_map(jeng.cfg.unet), UNET_PREFIX)
+
+    # the JAX step on the global batch from its steps on each video
+    ranks = ranks.results()
+    unclip = [max(1.0, r["video_metrics"]["grad_norm"] / jcfg.grad_clip) for r in ranks]
+    mean = jax.tree.map(lambda a, b: (a * unclip[0] + b * unclip[1]) / 2.0,
+                        clipped, clipped_of(new2))
+
+    @jax.jit  # 851 leaves: eager, the optimizer takes twice as long as its compile
+    def apply(grads, state):
+        updates, opt_state = tx.update(grads, state.opt_state, state.unet_params)
+        new = optax.apply_updates(state.unet_params, updates)
+        return new, opt_state, ema_update(state.ema_params, new, 1, jcfg.ema_decay)
+
+    new_global, opt_state, ema_global = apply(mean, state)
+    global_metrics = {k: (float(metrics[k]) + float(metrics2[k])) / 2.0
+                      for k in ("loss", "loss_main", "loss_hf", "sigma_mean")}
+    global_metrics["grad_norm"] = float(optax.global_norm(mean))  # the trained leaves'
     return dict(metrics=metrics, loss=float(loss), aux=aux, trainer=trainer,
                 port_grads={n: g * clip for n, g in port_grads.items()}, before=before,
                 port=port, grads=export(clipped), new=export(new_state.unet_params),
-                ema=export(new_state.ema_params))
+                ema=export(new_state.ema_params), ranks=ranks,
+                video_metrics=[metrics, metrics2],
+                video_grads=[export(clipped), export(clipped_of(new2))],
+                global_metrics=global_metrics,
+                global_grads=export(clipped_of(state.replace(opt_state=opt_state))),
+                global_new=export(new_global),
+                global_ema=export(ema_global))
 
 
 def test_train_step_loss_and_metrics_match_jax(step):
@@ -128,26 +194,78 @@ def test_train_step_loss_and_metrics_match_jax(step):
         assert _rel(float(step["aux"][k]), m[k]) <= 1e-4, k
 
 
-def test_train_step_adapter_grads_match_jax(step):
-    got = step["port_grads"]
+def _grads_close(got, exported):
+    """Each of ``got`` (clipped gradients by port name) within 1e-3 of the
+    JAX one's largest magnitude, floored at 1e-3 of the largest of all."""
     assert got and all("adapter" in n for n in got)
-    ref = {n: step["grads"][UNET_PREFIX + n] for n in got}
+    ref = {n: exported[UNET_PREFIX + n] for n in got}
     floor = 1e-3 * max(float(np.abs(g).max()) for g in ref.values())
     for n, g in got.items():
-        err = float(np.abs(g.numpy() - ref[n]).max())
+        err = float(np.abs(np.asarray(g) - ref[n]).max())
         assert err <= 1e-3 * max(float(np.abs(ref[n]).max()), floor), n
+
+
+def well_posed(g):
+    """The elements where Adam's first step is set by the clipped gradient
+    ``g``. The step moves an element by lr * g / (|g| + eps), so where |g|
+    is within 100 eps the step follows the gradient's last bits, up to 2 lr
+    apart between two correct gradients."""
+    return np.abs(g) >= 100 * TrainConfig().eps
+
+
+def _update_close(master, ema, new, new_ema, grads=None):
+    """The updated adapters and their EMA within lr / 10 of JAX's; with the
+    clipped ``grads`` (JAX's, exported), within 2 lr where the step is not
+    well posed."""
+    lr = OPT["learning_rate"]
+    for n, m in master.items():
+        posed = (np.ones(np.shape(m), bool) if grads is None
+                 else well_posed(grads[UNET_PREFIX + n]))
+        for got, ref in ((m, new), (ema[n], new_ema)):
+            err = np.abs(np.asarray(got) - ref[UNET_PREFIX + n])
+            assert float(err[posed].max(initial=0.0)) <= 0.1 * lr, n
+            assert float(err[~posed].max(initial=0.0)) <= 2 * lr, n
+
+
+def test_train_step_adapter_grads_match_jax(step):
+    _grads_close({n: g.numpy() for n, g in step["port_grads"].items()}, step["grads"])
 
 
 def test_train_step_update_and_ema_match_jax(step):
     trainer = step["trainer"]
-    bound = 0.1 * OPT["learning_rate"]
-    for n, master in trainer.master.items():
-        assert float(np.abs(master.numpy() - step["new"][UNET_PREFIX + n]).max()) <= bound, n
-        assert float(np.abs(trainer.ema[n].numpy() - step["ema"][UNET_PREFIX + n]).max()) \
-            <= bound, n
+    _update_close({n: m.numpy() for n, m in trainer.master.items()},
+                  {n: e.numpy() for n, e in trainer.ema.items()}, step["new"], step["ema"])
     after = step["port"].unet.state_dict()
     changed = [n for n, v in step["before"].items() if not torch.equal(v, after[n])]
     assert changed and all("adapter" in n for n in changed)
+
+
+def _clipped(out):
+    """The clipped gradient of a rank's state after one step (its first
+    Adam moment is ``(1 - beta1) * g``)."""
+    return {n: m / (1.0 - TrainConfig().beta1) for n, m in out["mu"].items()}
+
+
+def test_data_parallel_ranks_match_jax_on_their_videos(step):
+    for out, metrics, grads in zip(step["ranks"], step["video_metrics"], step["video_grads"]):
+        for k in ("loss", "loss_main", "loss_hf", "sigma_mean"):
+            assert _rel(out["video_metrics"][k], metrics[k]) <= 1e-4, k
+        _grads_close(_clipped(out["video"]), grads)
+
+
+def test_data_parallel_step_matches_jax_on_the_global_batch(step):
+    for out in step["ranks"]:
+        for k, ref in step["global_metrics"].items():
+            assert _rel(out["data2_metrics"][k], ref) <= (1e-3 if k == "grad_norm" else 1e-4), k
+        got = out["data2"]
+        _grads_close(_clipped(got), step["global_grads"])
+        _update_close(got["master"], got["ema"], step["global_new"], step["global_ema"],
+                      step["global_grads"])
+        assert got["counts"] == (1, 1)
+    # the two ranks hold the same state
+    for g in ("master", "mu", "nu", "ema"):
+        a, b = (out["data2"][g] for out in step["ranks"])
+        assert all(np.array_equal(a[n], b[n]) for n in a), g
 
 
 @pytest.mark.parametrize("policy", ["full", "slow_spatial", "lora_only"])

@@ -10,6 +10,16 @@ Usage:
 
 Without ``--image`` or ``--anno`` the context frames are random (seeded).
 The engine runs on the card unless ``--device cpu`` is given.
+
+On N cards the denoise rounds run sharded, one process a card::
+
+    torchrun --nproc_per_node N -m vista_tpu_torch.cli.sample --mesh-data N \
+        [--mesh-mode frames|weights]
+
+``frames`` splits each video's frames over the ranks (N must divide
+``--n_frames``), ``weights`` slices the UNet's weights over them; every
+rank holds the whole result and rank 0 writes the files. ``height`` is
+not ported and raises.
 """
 
 from __future__ import annotations
@@ -17,7 +27,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -28,9 +38,10 @@ from vista_tpu_torch.data.datasets import (ACTION_MODES, anno_actions, load_anno
                                            load_image)
 from vista_tpu_torch.diffusion.guidance import GuiderConfig
 from vista_tpu_torch.diffusion.sampler import SamplerConfig
-from vista_tpu_torch.engine.engine import VistaEngine
+from vista_tpu_torch.engine.engine import HEIGHT_NOT_PORTED, VistaEngine
 from vista_tpu_torch.engine.rollout import (RolloutConfig, autoregressive_rollout,
                                             draw_rollout_noise)
+from vista_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
 from vista_tpu_torch.utils.video import save_frames_png, save_grid_png, save_video_mp4
 
 
@@ -46,6 +57,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--n_steps", type=int, default=50)
     p.add_argument("--n_conds", type=int, default=1)
     p.add_argument("--cond_aug", type=float, default=0.0)
+    p.add_argument("--mesh-data", type=int, default=0,
+                   help="shard the denoise rounds over this many ranks (run under torchrun "
+                        "with as many processes; 0 = one process, unsharded)")
+    p.add_argument("--mesh-mode", default="frames", choices=["frames", "height", "weights"],
+                   help="sharded-denoise layout: frames (each rank a run of frames), weights "
+                        "(the UNet's weights sliced over the ranks); height is not ported")
     add_engine_args(p)
     return finish_args(p.parse_args(argv))
 
@@ -66,9 +83,28 @@ def context(args: argparse.Namespace) -> tuple[np.ndarray, Dict[str, np.ndarray]
                          args.width), {}
 
 
-def run(args: argparse.Namespace, engine: VistaEngine) -> dict:
-    """Roll out from the context and write the outputs under ``--save``;
-    returns the latents, the pixels, the context frames and the paths."""
+def sample_mesh(args: argparse.Namespace) -> Mesh:
+    """The ``--mesh-data`` mesh: joins torchrun's process group and raises
+    unless it has ``--mesh-data`` ranks, on the JAX CLI's divisibility
+    rule, and for ``--mesh-mode height``. Returns the mesh and sets
+    ``args.device`` to this rank's device."""
+    if args.mesh_mode == "height":
+        raise NotImplementedError(HEIGHT_NOT_PORTED)
+    world = int(os.environ.get("WORLD_SIZE", "0"))
+    if world != args.mesh_data:
+        raise SystemExit(f"--mesh-data {args.mesh_data}: run under torchrun with as many "
+                         f"processes (WORLD_SIZE={world or 'unset'})")
+    if args.mesh_mode == "frames" and args.n_frames % args.mesh_data:
+        raise SystemExit(f"--mesh-data {args.mesh_data} must divide n_frames={args.n_frames}")
+    args.device = init_distributed(args.device)
+    return make_mesh({"data": args.mesh_data})
+
+
+def run(args: argparse.Namespace, engine: VistaEngine, mesh: Optional[Mesh] = None) -> dict:
+    """Roll out from the context (sharded over ``mesh``'s ``data`` axis in
+    ``--mesh-mode`` when given) and write the outputs under ``--save`` (rank
+    0); returns the latents, the pixels, the context frames and the paths
+    (None on the other ranks)."""
     frames, actions = context(args)
     images = to_engine(frames, engine)
     batch = scalar_batch(args.cond_aug, engine.device)
@@ -80,7 +116,11 @@ def run(args: argparse.Namespace, engine: VistaEngine) -> dict:
                             initial_cond_indices=tuple(range(args.n_conds)))
     gen = torch.Generator(device=engine.device).manual_seed(args.seed)
     draws = draw_rollout_noise(engine, images, args.n_rounds, gen)
-    pixels, latents = autoregressive_rollout(engine, images, batch, sampler, rollout, draws)
+    pixels, latents = autoregressive_rollout(engine, images, batch, sampler, rollout, draws,
+                                             mesh=mesh, mesh_mode=args.mesh_mode)
+    out = dict(latents=latents, pixels=pixels, images=images, batch=batch, paths=None)
+    if mesh is not None and not mesh.is_first:
+        return out
 
     video = pixels.permute(0, 2, 3, 1).cpu().numpy()
     name = f"sample_{args.sample_index:06d}"
@@ -93,13 +133,17 @@ def run(args: argparse.Namespace, engine: VistaEngine) -> dict:
     for kind in ("video", "grid", "real"):
         print(f"wrote {paths[kind]}")
     print(f"wrote {len(paths['frames'])} frames to {os.path.join(args.save, 'images')}")
-    return dict(latents=latents, pixels=pixels, images=images, batch=batch, paths=paths)
+    out["paths"] = paths
+    return out
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    run(args, build_engine(args))
+    mesh = sample_mesh(args) if args.mesh_data else None
+    run(args, build_engine(args), mesh)
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

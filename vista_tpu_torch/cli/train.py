@@ -10,11 +10,21 @@ then the dotlist overrides. It runs on the card unless ``--device cpu``, and
 raises without one. Without ``--ckpt`` the weights are the modules' own
 initialisation under ``run.seed``. ``main(argv)`` runs in-process and
 returns the :class:`~vista_tpu_torch.runner.Runner`.
+
+On N cards, one process a card::
+
+    torchrun --nproc_per_node N -m vista_tpu_torch.cli.train \
+        --base configs/vista_phase1.yaml parallel.data=N
+
+Under torchrun (``WORLD_SIZE`` set) every process joins the group (NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``), the ``parallel`` mesh
+takes its ranks and the pipeline yields the data rank's rows.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -41,37 +51,47 @@ def main(argv=None):
     from vista_tpu_torch.config import load_config
     from vista_tpu_torch.data.pipeline import build_pipeline
     from vista_tpu_torch.engine.engine import VistaEngine
-    from vista_tpu_torch.runner import ExperimentConfig, Runner
+    from vista_tpu_torch.parallel.mesh import init_distributed
+    from vista_tpu_torch.runner import ExperimentConfig, Runner, rank_data, run_mesh
 
+    device = args.device
+    if os.environ.get("WORLD_SIZE"):
+        device = init_distributed(args.device)
     cfg = load_config(ExperimentConfig, args.base, args.overrides)
+    mesh = run_mesh(cfg)
     torch.manual_seed(cfg.run.seed)
-    engine = VistaEngine(cfg.engine, args.device)
+    engine = VistaEngine(cfg.engine, device)
     if args.ckpt:
         from vista_tpu_torch.utils.checkpoint import load_vista_state_dict
 
         print(f"loading weights from {args.ckpt}")
         load_vista_state_dict(engine.unet, engine.decoder, args.ckpt,
                               encoder=engine.encoder, conditioner=engine.conditioner)
-    pipeline = build_pipeline(cfg.data, cfg.height, cfg.width, cfg.engine.num_frames,
-                              synthetic=args.synthetic_data)
+    pipeline = build_pipeline(rank_data(cfg.data, mesh), cfg.height, cfg.width,
+                              cfg.engine.num_frames, synthetic=args.synthetic_data,
+                              process_index=mesh.coord("data"))
     try:
-        runner = Runner(cfg, pipeline, engine=engine, synthetic=args.synthetic_data)
+        runner = Runner(cfg, pipeline, engine=engine, synthetic=args.synthetic_data, mesh=mesh)
         if args.resume:
             runner.resume(args.resume)
-            print(f"resumed from {args.resume} at step {runner.trainer.step}")
+            if mesh.is_first:
+                print(f"resumed from {args.resume} at step {runner.trainer.step}")
         runner.fit()
     except Exception:
         pipeline.stop()
-        if args.debug:
+        if args.debug and mesh.is_first:
             import pdb
             import traceback
 
             traceback.print_exc()
             pdb.post_mortem()
         raise
-    print(f"done at step {runner.trainer.step}")
+    if mesh.is_first:
+        print(f"done at step {runner.trainer.step}")
     return runner
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

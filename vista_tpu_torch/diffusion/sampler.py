@@ -76,9 +76,12 @@ def sample_euler_edm(denoise_fn: DenoiseFn, noise: torch.Tensor, cond: dict,
                      cond_mask: Optional[torch.Tensor] = None,
                      config: SamplerConfig = SamplerConfig(),
                      num_frames: int = 25,
-                     churn_noise: Optional[ChurnNoise] = None) -> torch.Tensor:
+                     churn_noise: Optional[ChurnNoise] = None,
+                     frames: Optional[slice] = None) -> torch.Tensor:
     """noise ``(b*t, c, h, w)`` standard normal; returns the final latents.
-    ``churn_noise`` is required when ``config.s_churn > 0``."""
+    ``churn_noise`` is required when ``config.s_churn > 0``. ``frames``
+    (frame parallelism): the call holds these frames of each video, the
+    guider's scales are read at them and ``num_frames`` is their count."""
     if config.cfg_mode not in CFG_MODES:
         raise ValueError(f"unknown cfg_mode {config.cfg_mode!r}; one of {CFG_MODES}")
     use_churn = config.s_churn > 0.0
@@ -88,6 +91,8 @@ def sample_euler_edm(denoise_fn: DenoiseFn, noise: torch.Tensor, cond: dict,
                         config.rho).numpy()
     gamma_max = min(config.s_churn / (len(sigmas) - 1), math.sqrt(2.0) - 1.0)
     frame_scales = guider_frame_scales(config.guider)
+    if frames is not None and frame_scales is not None:
+        frame_scales = frame_scales[frames]
     guided = frame_scales is not None and uc is not None
     doubled = guided and config.cfg_mode == "batched"
     cond_all = _double_cond(cond, uc) if doubled else cond

@@ -13,7 +13,8 @@ package ties the two). Latents are ``(n, z, h, w)`` (NCHW, frame-major).
 - ``decode_first_stage``: windows of ``decode_chunk`` frames sharing
   ``decode_overlap`` frames, the seams averaged, one window after the other;
 - ``sample``: one sampling pass (Euler-EDM; batched or sequential CFG,
-  stochastic churn from the caller's noise).
+  stochastic churn from the caller's noise); ``sample_sharded``: the same
+  pass over the ranks of a mesh, frame- or weight-sharded.
 
 The engine runs on the card unless the caller asks for the CPU: building it
 on ``"cuda"`` without one raises.
@@ -33,6 +34,12 @@ from vista_tpu_torch.models.conditioner import ConditionerConfig, GeneralConditi
 from vista_tpu_torch.models.unet import VideoUNet, VideoUNetConfig
 from vista_tpu_torch.models.vae import (VAEConfig, VAEEncoder, VideoVAEDecoder,
                                         gaussian_mode, gaussian_sample)
+from vista_tpu_torch.parallel.frames import frame_parallel
+from vista_tpu_torch.parallel.mesh import Mesh, gather_frames
+from vista_tpu_torch.parallel.weights import sharded_weights
+
+HEIGHT_NOT_PORTED = ("sharded sampling mode 'height' (sequence-parallel latent rows) is not "
+                     "ported: ROADMAP.md, Queue 1 item 7")
 
 # the conditions the unconditional half of classifier-free guidance zeroes
 UC_ZERO_KEYS: FrozenSet[str] = frozenset(
@@ -177,3 +184,52 @@ class VistaEngine:
                                 cond_frame=cond_frame, cond_mask=cond_mask,
                                 config=sampler, num_frames=self.cfg.num_frames,
                                 churn_noise=churn_noise)
+
+    @torch.no_grad()
+    def sample_sharded(self, noise: torch.Tensor, cond: Dict[str, torch.Tensor],
+                       uc: Optional[Dict[str, torch.Tensor]] = None,
+                       cond_frame: Optional[torch.Tensor] = None,
+                       cond_mask: Optional[torch.Tensor] = None,
+                       sampler: SamplerConfig = SamplerConfig(), mesh: Optional[Mesh] = None,
+                       mode: str = "frames", fsdp_min_size: int = 2**16) -> torch.Tensor:
+        """One sampling pass over the ranks of ``mesh``'s ``data`` axis
+        (counterpart of ``jit_sample_sharded``); every rank passes the same
+        whole inputs and gets the whole latents back.
+
+        - ``frames``: each rank samples its contiguous run of ``num_frames /
+          n`` frames of each video (of ``noise``, ``cond_frame``,
+          ``cond_mask`` and a per-frame ``concat``; the guider's scales at
+          the run's indices in the video); the UNet's temporal stages run
+          frame-parallel (``parallel/frames.py``). ``n`` must divide
+          ``num_frames``.
+        - ``weights``: the UNet's parameters are sliced over the ranks by
+          ``fsdp_shard_dim`` and gathered block by block just in time
+          (``parallel/weights.py``); activations stay whole.
+        - ``height`` (sequence-parallel latent rows) is not ported.
+        """
+        if mode == "height":
+            raise NotImplementedError(HEIGHT_NOT_PORTED)
+        if mode not in ("frames", "weights"):
+            raise ValueError(f"unknown sharded-sampling mode {mode!r}")
+        if mesh is None or not mesh.distributed:
+            raise ValueError("sample_sharded needs a mesh over a process group (torchrun)")
+        group = mesh.group("data")
+        if mode == "weights":
+            with sharded_weights(self.unet.blocks(), group, fsdp_min_size):
+                return self.sample(noise, cond, uc, cond_frame, cond_mask, sampler)
+        t, n = self.cfg.num_frames, mesh.size("data")
+        if t % n:
+            raise ValueError(f"the data axis of {n} ranks must divide num_frames={t}")
+        tl = t // n
+        frames = slice(mesh.coord("data") * tl, (mesh.coord("data") + 1) * tl)
+        take = lambda a: None if a is None else (
+            a.reshape(-1, t, *a.shape[1:])[:, frames].reshape(-1, *a.shape[1:]))
+        per_frame = lambda c: None if c is None else {
+            k: take(v) if k == "concat" and v.shape[0] == noise.shape[0] else v
+            for k, v in c.items()}
+        with frame_parallel(group):
+            out = sample_euler_edm(self.denoise_fn(tl), take(noise), per_frame(cond),
+                                   per_frame(uc), cond_frame=take(cond_frame),
+                                   cond_mask=take(cond_mask), config=sampler, num_frames=tl,
+                                   frames=frames)
+        return gather_frames(out, noise.shape[0] // t, group)

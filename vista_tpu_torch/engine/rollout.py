@@ -17,12 +17,14 @@ explicit ``torch.Generator``. Frames are NCHW.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, FrozenSet, Iterable, Optional, Tuple
 
 import torch
 
 from vista_tpu_torch.diffusion.sampler import SamplerConfig
 from vista_tpu_torch.engine.engine import UC_ZERO_KEYS, VistaEngine
+from vista_tpu_torch.parallel.mesh import Mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +81,8 @@ def first_round_batch(batch: Dict[str, torch.Tensor], images: torch.Tensor,
 def autoregressive_rollout(engine: VistaEngine, images: torch.Tensor,
                            batch: Dict[str, torch.Tensor], sampler: SamplerConfig,
                            rollout: RolloutConfig, draws: RolloutDraws,
-                           decode_output: bool = True
+                           decode_output: bool = True, mesh: Optional[Mesh] = None,
+                           mesh_mode: str = "frames"
                            ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Run ``rollout.num_rounds`` rounds of prediction.
 
@@ -87,8 +90,12 @@ def autoregressive_rollout(engine: VistaEngine, images: torch.Tensor,
     batch: conditioning scalars and actions (``cond_frames_without_noise`` and
     ``cond_frames`` are set per round). Returns ``(pixels or None, latents)``:
     latents ``(num_rounds * (T - 3) + 3, z, h, w)`` in fp32, pixels the same
-    frames in [0, 1].
+    frames in [0, 1]. With ``mesh`` the denoise rounds run sharded over its
+    ``data`` axis (:meth:`VistaEngine.sample_sharded` in ``mesh_mode``);
+    encode, conditioning and decode run whole on every rank.
     """
+    run_round = engine.sample if mesh is None else functools.partial(
+        engine.sample_sharded, mesh=mesh, mode=mesh_mode)
     cfg = engine.cfg
     t, nc = cfg.num_frames, rollout.n_context_frames
     if draws.noise.shape[0] < rollout.num_rounds:
@@ -99,7 +106,7 @@ def autoregressive_rollout(engine: VistaEngine, images: torch.Tensor,
     c, uc = engine.condition_pair(first_round_batch(batch, images, draws.cond_aug),
                                   rollout.force_uc_zero)
     mask = frame_mask(rollout.initial_cond_indices, t, z.device)
-    sample = engine.sample(draws.noise[0], c, uc, z, mask, sampler)
+    sample = run_round(draws.noise[0], c, uc, z, mask, sampler)
     sample[0] = z[0]
 
     # every round decodes t latents: rounds 2+ carry the previous round's nc
@@ -123,7 +130,7 @@ def autoregressive_rollout(engine: VistaEngine, images: torch.Tensor,
 
         filled = torch.zeros_like(sample)
         filled[:nc] = sample[-nc:]
-        sample = engine.sample(draws.noise[n], c, uc, filled, pred_mask, sampler)
+        sample = run_round(draws.noise[n], c, uc, filled, pred_mask, sampler)
         latents.append(sample[nc:])
         if decode_output:
             decoded = engine.decode_first_stage(sample)

@@ -39,6 +39,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from vista_tpu_torch.models.layers import (AlphaBlender, GroupNorm32, from_rows,
@@ -49,6 +50,8 @@ from vista_tpu_torch.ops.fused_qkv import fused_ln_qkv
 from vista_tpu_torch.ops.fused_temporal_attn import fused_temporal_self_attn
 from vista_tpu_torch.ops.linear import linear_residual
 from vista_tpu_torch.ops.norms import layer_norm
+from vista_tpu_torch.parallel.frames import frame_group, frame_offset
+from vista_tpu_torch.parallel.mesh import frames_to_tokens, tokens_to_frames
 
 LONG_SEQ = 2048  # launch-count label only: "spatial-long" at s >= this
 ACTION_CONTEXT_DIM = 128 * 19  # five action modalities of 128-d sinusoidal embeds
@@ -193,9 +196,24 @@ class TemporalTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, num_frames: int,
                 time_context: Optional[torch.Tensor]) -> torch.Tensor:
+        """Under :func:`~vista_tpu_torch.parallel.frames.frame_parallel` the
+        rank's frames become its tokens' sequences of all frames (an
+        all-to-all) and come back after the block."""
         bt, s, c = x.shape
         b = bt // num_frames
-        x = x.reshape(b, num_frames, s, c).transpose(1, 2).reshape(b * s, num_frames, c)
+        group = frame_group()
+        if group is None:
+            x = x.reshape(b, num_frames, s, c).transpose(1, 2).reshape(b * s, num_frames, c)
+            x = self._sequences(x, b, num_frames, time_context)
+            return x.reshape(b, s, num_frames, c).transpose(1, 2).reshape(bt, s, c)
+        x = frames_to_tokens(x, b, group, seq_major=True)
+        x = self._sequences(x, b, num_frames * dist.get_world_size(group), time_context)
+        return tokens_to_frames(x, b, s, group, seq_major=True)
+
+    def _sequences(self, x: torch.Tensor, b: int, num_frames: int,
+                   time_context: Optional[torch.Tensor]) -> torch.Tensor:
+        """The block on ``(b * s, t, c)`` sequences, one per location."""
+        s, c = x.shape[0] // b, x.shape[2]
         x = self.ff_in.residual(x, self.norm_in)
         a = self.attn1
         if a.add_lora:
@@ -207,8 +225,7 @@ class TemporalTransformerBlock(nn.Module):
                 self.norm1.eps)
         y = self.attn2.cross(time_context).reshape(b, 1, 1, c)  # per video
         x = (x.reshape(b, s, num_frames, c) + y).reshape(b * s, num_frames, c)
-        x = self.ff.residual(x, self.norm3)
-        return x.reshape(b, s, num_frames, c).transpose(1, 2).reshape(bt, s, c)
+        return self.ff.residual(x, self.norm3)
 
 
 class SpatialVideoTransformer(nn.Module):
@@ -247,7 +264,9 @@ class SpatialVideoTransformer(nn.Module):
             time_context = context.reshape(bt // num_frames, num_frames,
                                            *context.shape[1:])[:, 0]
         xs = self.proj_in(to_rows(self.norm(x)))
-        frame_idx = torch.arange(num_frames, device=x.device).repeat(bt // num_frames)
+        first = frame_offset(num_frames) or 0  # frame parallelism: this rank's first frame
+        frame_idx = torch.arange(first, first + num_frames, device=x.device).repeat(
+            bt // num_frames)
         t_emb = timestep_embedding(frame_idx, self.channels, self.max_time_embed_period)
         pos = self.time_pos_embed(t_emb.to(xs.dtype))[:, None]
         for block, time_block in zip(self.transformer_blocks, self.time_stack):

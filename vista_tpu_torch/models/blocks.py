@@ -11,12 +11,15 @@ AlphaBlender collapsed into ``x + (1 - a) * h``.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from vista_tpu_torch.models.layers import AlphaBlender, GroupNorm32, from_rows, to_rows
 from vista_tpu_torch.ops.temporal_conv import (fused_gn_silu_conv3_emb,
                                                fused_gn_silu_conv3_res, gn_affine)
+from vista_tpu_torch.parallel.frames import frame_group
+from vista_tpu_torch.parallel.mesh import frames_to_tokens, gather_frames, tokens_to_frames
 
 
 class ResBlock(nn.Module):
@@ -54,18 +57,29 @@ class TemporalResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, num_frames: int,
                 res_scale: torch.Tensor) -> torch.Tensor:
-        """``x + res_scale * h`` where h is the temporal residual branch."""
+        """``x + res_scale * h`` where h is the temporal residual branch.
+        Under :func:`~vista_tpu_torch.parallel.frames.frame_parallel` the
+        branch runs on this rank's tokens of all frames (an all-to-all in
+        and out), its GroupNorm statistics summed over the group."""
         _, _, hh, ww = x.shape
         xs = to_rows(x).contiguous()
-        n1, c1 = self.in_layers[0], self.in_layers[2]
-        sc, sh = gn_affine(xs, n1.weight, n1.bias, num_frames, n1.eps)
         e = self.emb_layers(emb).float()
+        group = frame_group()
+        if group is not None:
+            b = xs.shape[0] // num_frames
+            xs = frames_to_tokens(xs, b, group, seq_major=False)
+            e = gather_frames(e, b, group)
+            num_frames *= dist.get_world_size(group)
+        n1, c1 = self.in_layers[0], self.in_layers[2]
+        sc, sh = gn_affine(xs, n1.weight, n1.bias, num_frames, n1.eps, group)
         h = fused_gn_silu_conv3_emb(xs, sc, sh, c1.weight, c1.bias.float(), e,
                                     num_frames)
         n2, c2 = self.out_layers[0], self.out_layers[3]
-        sc, sh = gn_affine(h, n2.weight, n2.bias, num_frames, n2.eps)
+        sc, sh = gn_affine(h, n2.weight, n2.bias, num_frames, n2.eps, group)
         out = fused_gn_silu_conv3_res(h, sc, sh, c2.weight, c2.bias.float(), xs,
                                       res_scale, num_frames)
+        if group is not None:
+            out = tokens_to_frames(out, b, hh * ww, group, seq_major=False)
         return from_rows(out, hh, ww)
 
 

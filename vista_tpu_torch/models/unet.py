@@ -131,6 +131,15 @@ class VideoUNet(nn.Module):
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
                                  nn.Conv2d(ch0, cfg.out_channels, 3, padding=1))
 
+    def blocks(self):
+        """The units that weight-sharded sampling gathers one at a time: the
+        three embedding MLPs, every layer of the input, middle and output
+        blocks, and the output head. Each parameter is in one of them."""
+        yield from (self.time_embed, self.cond_time_stack_embed, self.label_emb)
+        for layers in (*self.input_blocks, self.middle_block, *self.output_blocks):
+            yield from layers
+        yield self.out
+
     def _run(self, layers, h, emb, context, num_frames):
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in layers:

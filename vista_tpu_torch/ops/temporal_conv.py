@@ -41,6 +41,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from vista_tpu_torch.ops import _build
@@ -113,14 +114,30 @@ def conv3_plan(b: int, t: int, s: int, cin: int, cout: int, sms: int = 132) -> C
 
 
 def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-              num_frames: int, eps: float = 1e-5):
-    """x ``(b*t, s, c)`` -> fp32 ``scale``, ``shift`` of shape ``(b*t, c)``."""
+              num_frames: int, eps: float = 1e-5, group=None):
+    """x ``(b*t, s, c)`` -> fp32 ``scale``, ``shift`` of shape ``(b*t, c)``.
+
+    With ``group`` (frame parallelism: each rank holds its own tokens of
+    every frame) the statistics are fp32 sums over this rank's tokens,
+    summed over the group, then divided by the whole count. Sampling only:
+    no gradient flows through the sum."""
     bt, s, c = x.shape
     b = bt // num_frames
     groups = 32 if c % 32 == 0 else math.gcd(c, 32)
     xf = x.float().reshape(b, num_frames * s, groups, c // groups)
-    mean = xf.mean(dim=(1, 3))
-    var = (xf * xf).mean(dim=(1, 3)) - mean * mean
+    if group is None:
+        mean = xf.mean(dim=(1, 3))
+        var = (xf * xf).mean(dim=(1, 3)) - mean * mean
+    else:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError("frame-parallel GroupNorm statistics have no backward")
+        sums = torch.stack([xf.sum(dim=(1, 3)), (xf * xf).sum(dim=(1, 3))])
+        tokens = xf.new_full((1,), float(s))  # a fill on the device: no host copy to wait on
+        stats = torch.cat([sums.reshape(-1), tokens])
+        dist.all_reduce(stats, group=group)
+        count = num_frames * (c // groups) * stats[-1]
+        mean, sq = stats[:-1].view(2, b, groups) / count
+        var = sq - mean * mean
     rstd = torch.rsqrt(var + eps)                              # (b, G)
     scale = rstd.repeat_interleave(c // groups, dim=-1) * gamma.float()
     shift = beta.float() - mean.repeat_interleave(c // groups, dim=-1) * scale

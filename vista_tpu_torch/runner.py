@@ -13,12 +13,18 @@ signals (counterpart of ``vista_tpu/runner.py``).
 - checkpoints (``utils/checkpoint.save_checkpoint``) every ``ckpt_every``
   steps and at the end, and ``resume``;
 - SIGUSR1 checkpoints and continues, SIGTERM checkpoints and stops, SIGUSR2
-  opens pdb at the next step;
-- the LR scaling rule ``lr = accum x batch x base_lr`` (opt-in).
+  opens pdb at the next step; the flags are agreed over the ranks after
+  every step, so that every rank leaves or saves at the same step;
+- the LR scaling rule ``lr = accum x n_data x batch x base_lr`` (opt-in).
 
-One card: ``parallel`` takes one data-parallel rank and no FSDP. Each
-step's draws come from a generator seeded from ``(run.seed, step)``, so a
-resumed run draws what an unbroken one would.
+``parallel`` is the JAX mesh: ``data`` x ``fsdp`` ranks of the process
+group (``parallel/mesh.py``; one rank without a group). ``data.batch_size``
+is the global batch; each rank takes its data rank's rows, so ``fsdp`` peers
+see the same batch. Each step's draws are the global batch's, from a
+generator seeded from ``(run.seed, step)`` (so a resumed run draws what an
+unbroken one would), cut to the data rank's rows. Rank 0 alone writes
+``config.yaml``, ``metrics.csv``, images and checkpoints; the others join
+the collectives of the EMA context and of the checkpoint's gather.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vista_tpu_torch.config import save_config
 from vista_tpu_torch.data.pipeline import DataConfig, build_pipeline
@@ -39,14 +46,16 @@ from vista_tpu_torch.diffusion.guidance import GuiderConfig
 from vista_tpu_torch.diffusion.sampler import SamplerConfig
 from vista_tpu_torch.engine.engine import EngineConfig, VistaEngine
 from vista_tpu_torch.engine.training import TrainConfig, Trainer, draw_train, eval_loss
+from vista_tpu_torch.parallel.mesh import Mesh, make_mesh
 from vista_tpu_torch.utils import checkpoint as ckpt_io
 from vista_tpu_torch.utils.video import save_grid_png, save_video_mp4
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """The JAX package's mesh shape. The port runs on one card: ``data`` -1
-    or 1 and ``fsdp`` 1 only."""
+    """The mesh: ``data`` ranks split the global batch (DDP), ``fsdp`` ranks
+    slice the optimizer state (ZeRO); ``data: -1`` takes the ranks left.
+    Tensors under ``fsdp_min_size`` elements stay whole."""
 
     data: int = -1
     fsdp: int = 1
@@ -95,6 +104,24 @@ def step_generator(seed: int, index: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
+def run_mesh(cfg: ExperimentConfig) -> Mesh:
+    """The ``parallel`` mesh over the process group's ranks; raises where the
+    sizes do not fit the rank count or the data axis does not divide the
+    global batch."""
+    par = cfg.parallel
+    mesh = make_mesh({"data": par.data, "fsdp": par.fsdp})
+    n_data = mesh.size("data")
+    if cfg.data.batch_size % n_data:
+        raise ValueError(f"global batch {cfg.data.batch_size} not divisible by "
+                         f"data-parallel degree {n_data}")
+    return mesh
+
+
+def rank_data(cfg: DataConfig, mesh: Mesh) -> DataConfig:
+    """The data rank's share of the global batch ``cfg.batch_size``."""
+    return dataclasses.replace(cfg, batch_size=cfg.batch_size // mesh.size("data"))
+
+
 class Runner:
     """The training loop: the counterpart of the JAX package's
     ``runner.Trainer`` (the port's :class:`Trainer` is the step it drives).
@@ -102,16 +129,14 @@ class Runner:
     ``engine`` defaults to the modules' own initialisation under
     ``run.seed`` on ``device``. ``synthetic`` makes the validation batches
     synthetic too, as ``--synthetic-data`` does the training ones.
+    ``mesh`` defaults to :func:`run_mesh`; ``pipeline`` yields this data
+    rank's rows (:func:`rank_data`, ``process_index`` the data rank).
     """
 
     def __init__(self, cfg: ExperimentConfig, pipeline=None,
                  engine: Optional[VistaEngine] = None, device="cuda",
-                 synthetic: bool = False):
-        par = cfg.parallel
-        if par.data not in (-1, 1) or par.fsdp != 1:
-            raise NotImplementedError(
-                f"parallel data={par.data} fsdp={par.fsdp}: the port trains on one card; "
-                "multi-GPU is not ported yet (ROADMAP.md, Queue 1 item 5)")
+                 synthetic: bool = False, mesh: Optional[Mesh] = None):
+        self.mesh = mesh = mesh if mesh is not None else run_mesh(cfg)
         self.cfg = cfg
         run = cfg.run
         if engine is None:
@@ -126,17 +151,20 @@ class Runner:
         # host seconds of each fit() step: (waiting for the batch, the step)
         self.step_times: List[Tuple[float, float]] = []
 
-        os.makedirs(os.path.join(run.logdir, "checkpoints"), exist_ok=True)
-        os.makedirs(os.path.join(run.logdir, "images"), exist_ok=True)
-        save_config(cfg, os.path.join(run.logdir, "config.yaml"))
+        if mesh.is_first:
+            os.makedirs(os.path.join(run.logdir, "checkpoints"), exist_ok=True)
+            os.makedirs(os.path.join(run.logdir, "images"), exist_ok=True)
+            save_config(cfg, os.path.join(run.logdir, "config.yaml"))
 
         tcfg = cfg.train
-        bs = pipeline.cfg.batch_size if pipeline is not None else cfg.data.batch_size
-        if run.scale_lr:
+        n_data = mesh.size("data")
+        # the global batch (the pipeline yields the data rank's rows)
+        bs = pipeline.cfg.batch_size * n_data if pipeline is not None else cfg.data.batch_size
+        if run.scale_lr:  # the JAX rule: accum x n_data x global batch x base lr
             tcfg = dataclasses.replace(
-                tcfg, learning_rate=tcfg.accum_steps * bs * tcfg.learning_rate)
+                tcfg, learning_rate=tcfg.accum_steps * n_data * bs * tcfg.learning_rate)
         self.tcfg = tcfg
-        self.trainer = Trainer(engine, tcfg)
+        self.trainer = Trainer(engine, tcfg, mesh, cfg.parallel.fsdp_min_size)
 
         self.val_pipeline = None
         self._val_batches = None
@@ -146,9 +174,11 @@ class Runner:
             dcfg = cfg.data
             val_cfg = dataclasses.replace(
                 dcfg, sources=dcfg.val_sources or dcfg.sources, seed=dcfg.seed + 1,
-                batch_size=bs, samples_per_epoch=max(run.val_batches * bs, 1), num_threads=1)
+                batch_size=bs // n_data, samples_per_epoch=max(run.val_batches * bs, 1),
+                num_threads=1)
             self.val_pipeline = build_pipeline(val_cfg, cfg.height, cfg.width,
-                                               cfg.engine.num_frames, synthetic=synthetic)
+                                               cfg.engine.num_frames, synthetic=synthetic,
+                                               process_index=mesh.coord("data"))
 
         self._metrics_path = os.path.join(run.logdir, "metrics.csv")
         self._csv_initialized = os.path.exists(self._metrics_path)
@@ -172,17 +202,33 @@ class Runner:
                                                     (signal.SIGTERM, on_term),
                                                     (signal.SIGUSR2, on_usr2))}
 
+    def _agreed_flags(self) -> Tuple[bool, bool]:
+        """(stop, checkpoint) as any rank has them: the local signal flags,
+        all-reduced (max) over the ranks."""
+        if not self.mesh.distributed:
+            return self._stop, self._ckpt_requested
+        flags = torch.tensor([self._stop, self._ckpt_requested], dtype=torch.int32,
+                             device=self.device)
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+        self._stop, self._ckpt_requested = (bool(f) for f in flags.tolist())
+        return self._stop, self._ckpt_requested
+
     def _maybe_divein(self):
         if self._debug_requested:
             self._debug_requested = False
+            if not self.mesh.is_first:
+                return
             import pdb
 
             print("SIGUSR2: entering pdb (c to continue training)", flush=True)
             pdb.Pdb().set_trace()
 
     def _log_metrics(self, step: int, metrics: Dict):
-        """Append a row to metrics.csv; when a new key first appears the file
-        is rewritten with the wider header, so every row keeps its columns."""
+        """Append a row to metrics.csv (rank 0); when a new key first appears
+        the file is rewritten with the wider header, so every row keeps its
+        columns."""
+        if not self.mesh.is_first:
+            return
         row = {"step": step, **{k: float(v) for k, v in metrics.items()}}
         if self._csv_fields is None and self._csv_initialized:
             with open(self._metrics_path, newline="") as f:
@@ -219,18 +265,27 @@ class Runner:
         out["frames"] = out["frames"].permute(0, 1, 4, 2, 3).contiguous()
         return out
 
+    def _print(self, msg: str) -> None:
+        if self.mesh.is_first:
+            print(msg, flush=True)
+
     def _modules(self) -> Dict[str, torch.nn.Module]:
         e = self.engine
         return {"unet": e.unet, "encoder": e.encoder, "decoder": e.decoder,
                 "conditioner": e.conditioner}
 
+    def _shard_of(self) -> Tuple[int, int]:
+        return self.mesh.coord("data"), self.mesh.size("data")
+
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
-        """One micro-step on a host batch, its draws from ``(run.seed, step)``.
-        Under ``lora_only`` the gradient norm (over the trained leaves only)
-        is reported as ``grad_norm_trained``."""
+        """One micro-step on this data rank's rows of the global batch, its
+        draws the global batch's from ``(run.seed, step)``. Under
+        ``lora_only`` the gradient norm (over the trained leaves only) is
+        reported as ``grad_norm_trained``."""
         device_batch = self._put_batch(batch)
         gen = step_generator(self.cfg.run.seed, self.trainer.step, self.device)
-        metrics = self.trainer(device_batch, draw_train(self.engine, self.tcfg, device_batch, gen))
+        metrics = self.trainer(device_batch, draw_train(self.engine, self.tcfg, device_batch, gen,
+                                                        shard_of=self._shard_of()))
         if self.tcfg.policy == "lora_only":
             metrics["grad_norm_trained"] = metrics.pop("grad_norm")
         return metrics
@@ -238,7 +293,8 @@ class Runner:
     def validate(self) -> Dict[str, float]:
         """The training loss averaged over fixed held-out batches under the
         EMA weights, without ucg dropout, with the draws of each batch index
-        fixed: only the weights change between evaluations."""
+        fixed: only the weights change between evaluations. Each data rank
+        takes its rows; the means are the ranks' mean."""
         run = self.cfg.run
         if self._val_batches is None:
             it = iter(self.val_pipeline)
@@ -249,17 +305,22 @@ class Runner:
             for i, batch in enumerate(self._val_batches):
                 b = self._put_batch(batch)
                 draws = draw_train(self.engine, self.tcfg, b,
-                                   step_generator(run.seed + 17, i, self.device), dropout=False)
+                                   step_generator(run.seed + 17, i, self.device), dropout=False,
+                                   shard_of=self._shard_of())
                 loss, aux = eval_loss(self.engine, self.tcfg, b, draws)
-                vals = {"val_loss": float(loss), **{f"val_{k}": float(v) for k, v in aux.items()}}
+                vals = self.trainer.data_mean(
+                    {"val_loss": loss, **{f"val_{k}": v for k, v in aux.items()}})
                 for k, v in vals.items():
-                    totals[k] = totals.get(k, 0.0) + v / run.val_batches
+                    totals[k] = totals.get(k, 0.0) + float(v) / run.val_batches
         return totals
 
     def save_checkpoint(self, tag: Optional[str] = None) -> str:
+        """Every rank gathers the trainer state; rank 0 writes it."""
         step = self.trainer.step
         path = os.path.join(self.cfg.run.logdir, "checkpoints", tag or f"step_{step:08d}")
-        ckpt_io.save_checkpoint(path, self.trainer.state_dict(), self._modules())
+        state = self.trainer.state_dict()
+        if self.mesh.is_first:
+            ckpt_io.save_checkpoint(path, state, self._modules())
         return path
 
     def resume(self, path: str) -> None:
@@ -272,7 +333,13 @@ class Runner:
     def log_images(self, batch: Dict[str, np.ndarray]) -> None:
         """A sample from the EMA weights (the first clip's frame 0 pinned,
         linear guider), the input clip and its VAE reconstruction: a video
-        and three grids under ``images/``."""
+        and three grids under ``images/``, from rank 0; the other ranks only
+        join the EMA context's gathers."""
+        with self.trainer.ema_weights():
+            if self.mesh.is_first:
+                self._log_images(batch)
+
+    def _log_images(self, batch: Dict[str, np.ndarray]) -> None:
         run = self.cfg.run
         t = self.cfg.engine.num_frames
         eng = self.engine
@@ -292,8 +359,7 @@ class Runner:
         step = self.trainer.step
         noise = torch.randn(z.shape, generator=step_generator(run.seed, step, self.device),
                             device=self.device)
-        with self.trainer.ema_weights():
-            sample = eng.sample(noise, c, uc, z, mask, sampler)
+        sample = eng.sample(noise, c, uc, z, mask, sampler)
         to_host = lambda px: torch.clamp((px + 1.0) / 2.0, 0.0, 1.0).permute(0, 2, 3, 1).cpu().numpy()
         pixels = to_host(eng.decode_first_stage(sample))
         img_dir = os.path.join(run.logdir, "images")
@@ -312,7 +378,7 @@ class Runner:
         try:
             it = iter(self.pipeline)
             t_last = time.perf_counter()
-            while self.trainer.step < run.max_steps and not self._stop:
+            while self.trainer.step < run.max_steps:
                 self._maybe_divein()
                 t0 = time.perf_counter()
                 batch = next(it)
@@ -325,20 +391,23 @@ class Runner:
                     metrics["steps_per_sec"] = run.log_every / max(now - t_last, 1e-9)
                     t_last = now
                     self._log_metrics(step, metrics)
-                    print(f"step {step}: loss={metrics['loss']:.4f} "
-                          f"({metrics['steps_per_sec']:.2f} it/s)", flush=True)
+                    self._print(f"step {step}: loss={metrics['loss']:.4f} "
+                                f"({metrics['steps_per_sec']:.2f} it/s)")
                 if run.val_every > 0 and step % run.val_every == 0:
                     val_metrics = self.validate()
                     self._log_metrics(step, val_metrics)
-                    print(f"step {step}: val_loss={val_metrics['val_loss']:.4f}", flush=True)
+                    self._print(f"step {step}: val_loss={val_metrics['val_loss']:.4f}")
                 if _is_log_step(step, run.image_log_every):
                     try:
                         self.log_images(batch)
                     except Exception as e:  # an image log never stops training
                         print(f"image logging failed at step {step}: {e!r}", flush=True)
-                if step % run.ckpt_every == 0 or self._ckpt_requested:
+                stop, ckpt = self._agreed_flags()
+                if step % run.ckpt_every == 0 or ckpt:
                     self.save_checkpoint()
                     self._ckpt_requested = False
+                if stop:
+                    break
             self.save_checkpoint("last")
         finally:
             self.pipeline.stop()
