@@ -2775,7 +2775,7 @@ def quality_run(seed):
 # the sample CLI's round: 576x1024, 25 frames, one round of 5 steps
 PARALLEL_SAMPLE_ARGV = ["--n_rounds", "1", "--n_steps", "5", "--height", "576",
                         "--width", "1024"]
-PARALLEL_MODES = ("frames", "weights")
+PARALLEL_MODES = ("frames", "height", "weights")
 # the train CLI on the phase-1 recipe: 4 micro-steps (2 updates at accum 2)
 # with the phase1 phase's warm-up (the full rate from update 0), the losses
 # of every step in the CSV, one decoder thread (two hand the batches out in
@@ -2783,8 +2783,9 @@ PARALLEL_MODES = ("frames", "weights")
 PARALLEL_TRAIN_OVERRIDES = ["run.max_steps=4", "run.log_every=1", "train.warmup_steps=0",
                             "data.num_threads=1", "parallel.data=1"]
 # sampling: frames at one rank changes only the order of the temporal
-# GroupNorm sums; held, as the small slice's bf16 run, to 5e-2 of the
-# largest latent
+# GroupNorm sums, height the arithmetic of every GroupNorm's statistics (and
+# its convs read copies of their rows); held, as the small slice's bf16 run,
+# to 5e-2 of the largest latent
 PARALLEL_FRAMES_TOL = 5e-2
 
 
@@ -2796,7 +2797,7 @@ def parallel_train_argv(logdir):
 def parallel_sample_worker(seed):
     """Under torch.distributed.run: the sample CLI's mesh (``--mesh-data 1``,
     NCCL), one engine of seeded random weights, and the CLI's ``run`` in
-    ``frames`` and ``weights`` mode and without a mesh."""
+    ``frames``, ``height`` and ``weights`` mode and without a mesh."""
     import tempfile
 
     from vista_tpu_torch.cli import sample as sample_cli
@@ -2924,62 +2925,126 @@ def torchrun(kind, seed):
 # tokens a frame-parallel split over PARALLEL_SPLIT ranks cuts unevenly
 PARALLEL_SPLIT = 5
 PARALLEL_SITES = (("ds1", 9216, 320, 5), ("mid", 144, 1280, 20))
+# the spatial attention levels of the 576x1024 latents (rows, width,
+# channels, heads) and the rank counts whose row bands height mode checks
+HEIGHT_LEVELS = (("ds1", 72, 128, 320, 5), ("ds2", 36, 64, 640, 10),
+                 ("ds4", 18, 32, 1280, 20), ("ds8", 9, 16, 1280, 20))
+HEIGHT_SPLITS = (2, 4, 8)
+HEIGHT_CHECK_FRAMES = 2  # of the 50 whose K1 output is held to the plain version
 
 
 def sharded_shape_checks(seed):
-    """The temporal kernels at the local shapes of a frame-parallel split of
-    the sampling batch over ``PARALLEL_SPLIT`` ranks (one card cannot run
-    the ranks; their shapes it can): each rank's tokens of all 25 frames of
-    both CFG halves, 1844 / 1843 of 9216 at ds1, 29 / 28 of 144 at the mid
-    block. K4 (``emb`` and ``res``) on frame-major rows ``(50, s, c)``; K2
-    split, K1's short route and K3 on the temporal sequences ``(2 s, 25,
-    c)``; each against its plain version in fp32 on the same bf16 inputs,
-    to ``TOL``."""
+    """The kernels at the local shapes of a split of the 576x1024 sampling
+    batch (one card cannot run the ranks; their shapes it can), each against
+    its plain version in fp32 on the same bf16 inputs, to ``TOL``:
+
+    - ``frames`` over ``PARALLEL_SPLIT`` ranks: each rank's tokens of all 25
+      frames of both CFG halves, 1844 / 1843 of 9216 at ds1, 29 / 28 of 144
+      at the mid block. K4 (``emb`` and ``res``) on frame-major rows ``(50,
+      s, c)``; K2 split, K1's short route and K3 on the temporal sequences
+      ``(2 s, 25, c)``;
+    - ``height`` over ``HEIGHT_SPLITS`` ranks: every band of latent rows
+      (uneven ones included) at each spatial attention level: K1 with the
+      band's queries against the whole frame's keys (all 50 frames, the
+      first ``HEIGHT_CHECK_FRAMES`` held), K2 split and K4 ``emb`` on the
+      band's tokens ``(50, band tokens, c)``;
+    - an empty band (more ranks than rows): K1, K2, K3, K4 and the
+      LayerNorm on no rows return empty results and launch nothing."""
+    from vista_tpu_torch.ops import _build
     from vista_tpu_torch.ops.attention import attention_forward, attention_plain
     from vista_tpu_torch.ops.fused_qkv import fused_ln_qkv
     from vista_tpu_torch.ops.linear import (linear_residual, linear_residual_plain,
                                             ln_linear_plain)
+    from vista_tpu_torch.ops.norms import layer_norm_kernel
     from vista_tpu_torch.ops.temporal_conv import gn_silu_conv3, gn_silu_conv3_plain
+    from vista_tpu_torch.parallel.height import bounds
     from vista_tpu_torch.parallel.mesh import token_splits
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 23)
     rnd = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device="cuda") * scale
     bf = lambda t: t.to(torch.bfloat16)
     rows, t = [], 25
+
+    def k4(site, s_me, c, kinds=("emb", "res")):
+        x = bf(rnd(2 * t, s_me, c))
+        sc, sh = 1.0 + 0.1 * rnd(2 * t, c), 0.1 * rnd(2 * t, c)
+        w, b = bf(rnd(c, c, 3, 1, 1, scale=(3 * c) ** -0.5)), 0.02 * rnd(c)
+        emb, res, rs = 0.1 * rnd(2 * t, c), bf(rnd(2 * t, s_me, c)), rnd(1).abs()
+        epilogues = {"emb": dict(emb=emb), "res": dict(residual=res, res_scale=rs)}
+        for kind in kinds:
+            kw = epilogues[kind]
+            got = gn_silu_conv3(x, sc, sh, w, b, t, **kw)
+            with full_fp32():
+                ref = gn_silu_conv3_plain(x.float(), sc, sh, w.float(), b, t,
+                                          **{k: v.float() for k, v in kw.items()})
+            rows.append((f"gn_silu_conv3 {kind} {site} (50,{s_me},{c})", got, ref))
+
+    def k2(x, ln_w, ln_b, wq, wk, wv, site, shape, count_site="temporal-qkv"):
+        q, k, v = fused_ln_qkv(x, ln_w, ln_b, wq, wk, wv, 1e-5, site=count_site)
+        with full_fp32():
+            rq, rk, rv = ln_linear_plain(x.float(), ln_w, ln_b,
+                                         torch.cat([wq, wk, wv]).float(), None, "split", 3)
+        rows.append((f"ln_linear qkv {site} {shape}", torch.stack([q, k, v]),
+                     torch.stack([rq, rk, rv])))
+        return q, k, v
+
+    def params(c):
+        return (1.0 + 0.1 * rnd(c), 0.1 * rnd(c),
+                *(bf(rnd(c, c, scale=c ** -0.5)) for _ in range(4)), 0.02 * rnd(c))
+
     for site, s, c, heads in PARALLEL_SITES:
         for s_me in sorted(set(token_splits(s, PARALLEL_SPLIT)), reverse=True):
-            x = bf(rnd(2 * t, s_me, c))
-            sc, sh = 1.0 + 0.1 * rnd(2 * t, c), 0.1 * rnd(2 * t, c)
-            w, b = bf(rnd(c, c, 3, 1, 1, scale=(3 * c) ** -0.5)), 0.02 * rnd(c)
-            emb, res, rs = 0.1 * rnd(2 * t, c), bf(rnd(2 * t, s_me, c)), rnd(1).abs()
-            for kind, kw in (("emb", dict(emb=emb)), ("res", dict(residual=res, res_scale=rs))):
-                got = gn_silu_conv3(x, sc, sh, w, b, t, **kw)
-                with full_fp32():
-                    ref = gn_silu_conv3_plain(x.float(), sc, sh, w.float(), b, t,
-                                              **{k: v.float() for k, v in kw.items()})
-                rows.append((f"gn_silu_conv3 {kind} {site} (50,{s_me},{c})", got, ref))
+            k4(site, s_me, c)
             seq = bf(rnd(2 * s_me, t, c))
-            ln_w, ln_b = 1.0 + 0.1 * rnd(c), 0.1 * rnd(c)
-            wq, wk, wv, wo = (bf(rnd(c, c, scale=c ** -0.5)) for _ in range(4))
-            bo = 0.02 * rnd(c)
-            q, k, v = fused_ln_qkv(seq, ln_w, ln_b, wq, wk, wv, 1e-5, site="temporal-qkv")
+            ln_w, ln_b, wq, wk, wv, wo, bo = params(c)
+            shape = f"({2 * s_me},{t},{c})"
+            q, k, v = k2(seq, ln_w, ln_b, wq, wk, wv, f"temporal {site}", shape)
             o = attention_forward(q, k, v, heads, site="temporal")
             out = linear_residual(o, wo, bo, seq, site="temporal-out")
             with full_fp32():
-                rq, rk, rv = ln_linear_plain(seq.float(), ln_w, ln_b,
-                                             torch.cat([wq, wk, wv]).float(), None, "split", 3)
                 ro = attention_plain(q.float(), k.float(), v.float(), heads)
                 rout = linear_residual_plain(o.float(), wo.float(), bo, seq.float())
-            shape = f"({2 * s_me},{t},{c})"
-            rows += [(f"ln_linear temporal-qkv {site} {shape}", torch.stack([q, k, v]),
-                      torch.stack([rq, rk, rv])),
-                     (f"attention temporal {site} {shape}", o, ro),
+            rows += [(f"attention temporal {site} {shape}", o, ro),
                      (f"linear_residual temporal-out {site} {shape}", out, rout)]
+
+    nf = HEIGHT_CHECK_FRAMES
+    for level, h, w, c, heads in HEIGHT_LEVELS:
+        bands = sorted({b[i + 1] - b[i] for b in (bounds(h, n) for n in HEIGHT_SPLITS)
+                        for i in range(len(b) - 1)}, reverse=True)
+        k = bf(rnd(2 * t, h * w, c))
+        v = bf(rnd(2 * t, h * w, c))
+        for r in bands:
+            s_me = r * w
+            site = f"height {level} {r} of {h} rows"
+            k4(site, s_me, c, kinds=("emb",))
+            ln_w, ln_b, wq, wk, wv, _, _ = params(c)
+            q = k2(bf(rnd(2 * t, s_me, c)), ln_w, ln_b, wq, wk, wv, site, f"(50,{s_me},{c})",
+                   "qkv")[0]
+            o = attention_forward(q, k, v, heads, site="spatial")
+            with full_fp32():
+                ro = attention_plain(q[:nf].float(), k[:nf].float(), v[:nf].float(), heads)
+            rows.append((f"attention {site} (50,{s_me} of {h * w},{c})", o[:nf], ro))
+
+    before = dict(_build.LAUNCHES)
+    x0 = bf(rnd(2 * t, 0, 320))
+    ln_w, ln_b, wq, wk, wv, wo, bo = params(320)
+    kk = bf(rnd(2 * t, 64, 320))
+    empty = [fused_ln_qkv(x0, ln_w, ln_b, wq, wk, wv)[0],
+             attention_forward(x0, kk, kk, 5), linear_residual(x0, wo, bo, x0),
+             gn_silu_conv3(x0, ln_w.expand(2 * t, -1), ln_b.expand(2 * t, -1),
+                           bf(rnd(320, 320, 3, 1, 1)), bo, t, emb=bo.expand(2 * t, -1)),
+             layer_norm_kernel(x0, ln_w, ln_b)]
+    torch.cuda.synchronize()
+    if dict(_build.LAUNCHES) != before or any(e.shape != x0.shape for e in empty):
+        raise SystemExit(f"parallel: an empty band launched a kernel or changed shape: "
+                         f"{[tuple(e.shape) for e in empty]}")
+    log("  an empty band (50, 0, 320): K1, K2, K3, K4 and the LayerNorm launch nothing")
+
     table, faults = [], []
     for name, got, ref in rows:
         rel = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
         table.append(dict(check=name, rel_err=rel))
-        log(f"  {name:48s} rel {rel:.2e}  {'ok' if rel <= TOL else 'FAIL'}")
+        log(f"  {name:60s} rel {rel:.2e}  {'ok' if rel <= TOL else 'FAIL'}")
         if not (math.isfinite(rel) and rel <= TOL):
             faults.append(name)
     if faults:
@@ -2989,8 +3054,8 @@ def sharded_shape_checks(seed):
 
 def parallel_run(seed):
     """The CLIs under torch.distributed.run at world size 1 over NCCL: the
-    sample CLI in ``frames`` and ``weights`` mode against the same round
-    without a mesh, and the train CLI on the phase-1 recipe with
+    sample CLI in ``frames``, ``height`` and ``weights`` mode against the
+    same round without a mesh, and the train CLI on the phase-1 recipe with
     ``parallel.data=1`` against the same steps without a group (in this
     process). No multi-GPU speed exists here: one card."""
     OUT.mkdir(exist_ok=True)
@@ -3018,9 +3083,11 @@ def parallel_run(seed):
         missing = [k for k in SAMPLE_KERNELS + ATTENTION_ROUTES if not r["launches"].get(k)]
         if missing:
             faults.append(f"{mode}: kernels never launched: {missing}")
-    if sample["frames"]["max_abs_diff"] > PARALLEL_FRAMES_TOL * sample["latents_max"]:
-        faults.append(f"frames at one rank: {sample['frames']['max_abs_diff']:.4e} from the "
-                      f"round without a mesh, over {PARALLEL_FRAMES_TOL} of the largest latent")
+    for mode in ("frames", "height"):
+        if sample[mode]["max_abs_diff"] > PARALLEL_FRAMES_TOL * sample["latents_max"]:
+            faults.append(f"{mode} at one rank: {sample[mode]['max_abs_diff']:.4e} from the "
+                          f"round without a mesh, over {PARALLEL_FRAMES_TOL} of the largest "
+                          f"latent")
     if not sample["weights"]["bit_identical"]:
         faults.append("weights mode at one rank gathers the same weights: its latents must be "
                       "bit-identical to the round without a mesh")
@@ -3060,6 +3127,7 @@ def parallel_run(seed):
     if faults:
         raise SystemExit("parallel: " + "; ".join(faults))
     return {"parallel_sample_frames": sample["frames"]["launches"],
+            "parallel_sample_height": sample["height"]["launches"],
             "parallel_sample_weights": sample["weights"]["launches"],
             "parallel_train": train["launches"]}
 

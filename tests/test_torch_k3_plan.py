@@ -120,13 +120,19 @@ def test_plans_match_the_cuda_sources():
 @pytest.mark.parametrize("m,k,n", [(100, 12, 64), (100, 64, 12), (0, 64, 64), (100, 0, 64)])
 def test_linear_residual_refuses(monkeypatch, m, k, n):
     """On the card's path (forced here), a shape the kernel does not take
-    raises before anything is launched."""
+    raises before anything is launched; no rows (an empty band of
+    height-parallel sampling) give an empty result, also launching
+    nothing."""
     monkeypatch.setattr(_build, "on_cpu", lambda *t: False)
     monkeypatch.setattr(linear, "sm_count", lambda index: 132)
     monkeypatch.setattr(_build, "launch", lambda *a: pytest.fail("launched"))
     a, w = torch.zeros(m, k, dtype=torch.bfloat16), torch.zeros(n, k, dtype=torch.bfloat16)
+    residual = torch.zeros(m, n, dtype=torch.bfloat16)
+    if m == 0:
+        assert linear_residual(a, w, torch.zeros(n), residual).shape == (0, n)
+        return
     with pytest.raises(ValueError):
-        linear_residual(a, w, torch.zeros(n), torch.zeros(m, n, dtype=torch.bfloat16))
+        linear_residual(a, w, torch.zeros(n), residual)
 
 
 @pytest.mark.parametrize("m,c,n", [(100, 12, 48), (100, 64, 96), (100, 64, 0), (0, 64, 256)])

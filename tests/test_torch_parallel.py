@@ -13,7 +13,13 @@
   the frame gather, the gather along each dim, the bucketed gradient mean;
   the partial-sum ``gn_affine`` against the whole one, to 1e-6;
 - ``VideoUNet.blocks`` holds each parameter once (the units that
-  weight-sharded sampling gathers).
+  weight-sharded sampling gathers);
+- on the same 2 ranks, the band code of ``height`` mode against the
+  whole-frame op, to 1e-6 of its largest magnitude, at an uneven level (9
+  rows: bands 4 / 5) and at empty bands: the UNet's 3x3 conv at stride 1
+  and 2, its 1x1 conv, ``Upsample`` (``F.conv2d`` after the interpolation),
+  the band-summed ``GroupNorm32`` (``F.group_norm``), and band-local queries
+  against K and V gathered over the bands (``attention_plain``).
 """
 
 import dataclasses
@@ -108,3 +114,15 @@ def test_unet_blocks_hold_each_parameter_once():
                                              action_control=True))
     params = [p for block in unet.blocks() for p in block.parameters()]
     assert len(params) == len({id(p) for p in params}) == len(list(unet.parameters()))
+
+
+HEIGHT_CASES = [f"{op} {rows} rows" for rows in (9, 1)
+                for op in ("conv", "conv_s2", "conv_1x1", "upsample", "group_norm", "attention")
+                ] + ["conv_s2 2 rows"]
+
+
+@pytest.mark.parametrize("case", HEIGHT_CASES)
+def test_height_band_ops_match_the_whole_frame(two_ranks, case):
+    for out in two_ranks:
+        assert sorted(out["height"]) == sorted(HEIGHT_CASES)
+        assert out["height"][case] <= 1e-6, out["height"]

@@ -14,9 +14,9 @@ import torch.distributed as dist
 
 from vista_tpu_torch.parallel import mesh as pm
 from vista_tpu_torch.parallel.frames import frame_parallel
-from vista_tpu_torch.parallel.mesh import (all_gather_dim, frames_to_tokens, gather_frames,
-                                           grad_mean_, make_mesh, shard, token_splits,
-                                           tokens_to_frames)
+from vista_tpu_torch.parallel.mesh import (Mesh, all_gather_dim, frames_to_tokens,
+                                           gather_frames, grad_mean_, make_mesh, shard,
+                                           token_splits, tokens_to_frames)
 
 
 def mesh_outcome(axis_sizes):
@@ -70,6 +70,55 @@ def collectives(rank, mesh_cases):
     ref = gn_affine(rows, gamma, beta, t)
     got = gn_affine(tokens.reshape(b * t, mine, c).contiguous(), gamma, beta, t, 1e-5, group)
     out["gn_rel"] = [float((a - r).abs().max() / r.abs().max()) for a, r in zip(got, ref)]
+    out["height"] = height_primitives(group)
+    return out
+
+
+def height_primitives(group):
+    """The band code of ``parallel/height.py`` against the whole-frame op on
+    the same inputs, at an uneven level (9 rows: bands 4 / 5) and an empty
+    band (1 row: 0 / 1; a 2 -> 1 row stride-2 conv leaves rank 0 none): the
+    UNet's 3x3 conv at stride 1 and 2, its 1x1 conv, ``Upsample``,
+    ``GroupNorm32`` and band-local queries against gathered K and V. Each
+    rank's bands are gathered whole; the largest difference relative to the
+    whole op's largest magnitude, by case."""
+    from vista_tpu_torch.models.blocks import Upsample
+    from vista_tpu_torch.models.layers import Conv2d, GroupNorm32
+    from vista_tpu_torch.ops.attention import attention_packed, attention_plain
+    from vista_tpu_torch.parallel.height import (band, band_of, band_sizes, gather_bands,
+                                                 gather_keys, height_parallel)
+
+    torch.manual_seed(6)
+    g = torch.Generator().manual_seed(7)
+    f, c, w = 3, 64, 6
+    mods = {"conv": Conv2d(c, 16, 3, padding=1), "conv_s2": Conv2d(c, c, 3, stride=2, padding=1),
+            "conv_1x1": Conv2d(c, 16, 1), "upsample": Upsample(c), "group_norm": GroupNorm32(c)}
+    with torch.no_grad():
+        mods["group_norm"].weight.normal_(1.0, 0.1)
+        mods["group_norm"].bias.normal_(0.0, 0.1)
+    out = {}
+    for rows in (9, 1, 2):
+        x = torch.randn(f, c, rows, w, generator=g).contiguous(memory_format=torch.channels_last)
+        for name, mod in mods.items():
+            if rows == 2 and name != "conv_s2":
+                continue
+            with torch.no_grad():
+                ref = mod(x)
+                with height_parallel(group, rows, w):
+                    got = gather_bands(mod(band_of(x)), 2, band_sizes(ref.shape[2]))
+            out[f"{name} {rows} rows"] = float((got - ref).abs().max() / ref.abs().max())
+        if rows == 2:
+            continue
+        heads = 2
+        q, k, v = (torch.randn(f, rows * w, heads * 16, generator=g) for _ in range(3))
+        ref = attention_plain(q, k, v, heads)
+        with height_parallel(group, rows, w):
+            start, stop = band(rows)
+            mine = lambda t: t[:, start * w:stop * w]
+            kk, vv = gather_keys(mine(k), mine(v), w)
+            part = attention_packed(mine(q), kk, vv, heads)
+            got = gather_bands(part, 1, [size * w for size in band_sizes(rows)])
+        out[f"attention {rows} rows"] = float((got - ref).abs().max() / ref.abs().max())
     return out
 
 
@@ -78,6 +127,20 @@ def collectives(rank, mesh_cases):
 def fp32(cfg):
     return dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, dtype="float32"),
                                vae=dataclasses.replace(cfg.vae, dtype="float32"))
+
+
+class OneRank:
+    """The part of a ``DeviceMesh`` that ``Mesh`` reads, for a one-rank
+    ``group`` of the world (each rank its own)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def get_group(self, axis):
+        return self.group
+
+    def get_local_rank(self, axis):
+        return 0
 
 
 def tiny_engine(state, **changes):
@@ -93,13 +156,16 @@ def tiny_engine(state, **changes):
 
 
 def sampling(rank, state, inputs, sampler_kw, save_dir):
-    """The one-rank pass, the frames and weights passes, a 2-round rollout
-    with and without the mesh, the refusals, and the sample CLI."""
+    """The one-rank pass, the frames, height and weights passes, the height
+    pass and one denoiser call at 6 and 2 latent rows, a 2-round rollout
+    with and without the mesh, the refusals, and the sample CLI in frames
+    and height mode."""
     from vista_tpu_torch.cli import sample as sample_cli
     from vista_tpu_torch.diffusion.guidance import GuiderConfig
     from vista_tpu_torch.diffusion.sampler import SamplerConfig
     from vista_tpu_torch.engine.rollout import (RolloutConfig, autoregressive_rollout,
                                                 draw_rollout_noise)
+    from vista_tpu_torch.parallel.height import band_of, gather_rows, height_parallel
 
     mesh = make_mesh({"data": 2})
     engine = tiny_engine(state)
@@ -122,8 +188,29 @@ def sampling(rank, state, inputs, sampler_kw, save_dir):
             part = engine.denoise_fn(tl)(mine(x), mine(sigma), both, mine(m2))
     out["denoise_frames"] = gather_frames(part, 2, mesh.group("data")).numpy()
     before = {k: v.clone() for k, v in engine.unet.state_dict().items()}
-    for mode in ("frames", "weights"):
+    for mode in ("frames", "height", "weights"):
         out[mode] = engine.sample_sharded(*args, mesh=mesh, mode=mode, fsdp_min_size=128).numpy()
+    # height: 8 rows (bands 4 / 4, then 2 / 2), 6 (3 / 3, so rank 1's stride-2
+    # input starts on an odd row, then 1 / 2) and 2 (1 / 1, then an empty
+    # band); each also on a one-rank mesh of this rank alone (one band)
+    solo = Mesh({"data": 1, "fsdp": 1}, OneRank([dist.new_group([r]) for r in range(2)][rank]))
+    for rows in (8, 6, 2):
+        cut = lambda a: a[:, :, :rows]
+        conds = [{k: cut(v) if v.ndim == 4 else v for k, v in c.items()} for c in (cond, uc)]
+        rows_args = (cut(noise), *conds, cut(cond_frame), mask, sampler)
+        out[f"height_one_band_{rows}"] = engine.sample_sharded(*rows_args, mesh=solo,
+                                                               mode="height").numpy()
+        if rows != 8:
+            out[f"one_{rows}"] = engine.sample(*rows_args).numpy()
+            out[f"height_{rows}"] = engine.sample_sharded(*rows_args, mesh=mesh,
+                                                          mode="height").numpy()
+        both = {k: torch.cat([conds[1][k], conds[0][k]]) for k in cond}
+        with torch.no_grad():
+            out[f"denoise_one_{rows}"] = engine.denoise_fn()(cut(x), sigma, both, m2).numpy()
+            with height_parallel(mesh.group("data"), rows, x.shape[3]):
+                part = engine.denoise_fn()(band_of(cut(x)), sigma, {
+                    k: band_of(v) if v.ndim == 4 else v for k, v in both.items()}, m2)
+                out[f"denoise_height_{rows}"] = gather_rows(part).numpy()
     out["unet_restored"] = all(torch.equal(before[k], v)
                                for k, v in engine.unet.state_dict().items())
 
@@ -138,35 +225,35 @@ def sampling(rank, state, inputs, sampler_kw, save_dir):
     draws = draw_rollout_noise(engine, images, 2, torch.Generator().manual_seed(3))
     out["rollout_noise_max"] = float(draws.noise[0].abs().max())
     for name, kw in (("rollout_one", {}), ("rollout_frames", {"mesh": mesh}),
+                     ("rollout_height", {"mesh": mesh, "mesh_mode": "height"}),
                      ("rollout_weights", {"mesh": mesh, "mesh_mode": "weights"})):
         pixels, latents = autoregressive_rollout(engine, images, batch, tri, rollout, draws, **kw)
         out[name] = (pixels.numpy(), latents.numpy())
 
     errors = {}
-    try:
-        engine.sample_sharded(*args, mesh=mesh, mode="height")
-    except NotImplementedError as e:
-        errors["height"] = str(e)
     odd = tiny_engine(state, num_frames=3)
     try:
         odd.sample_sharded(noise[:3], cond, uc, cond_frame[:3], mask[:3], sampler, mesh=mesh)
     except ValueError as e:
         errors["frames"] = str(e)
-    for argv, kind in ((["--mesh-data", "2", "--mesh-mode", "height"], NotImplementedError),
-                       (["--mesh-data", "2", "--n_frames", "3"], SystemExit),
-                       (["--mesh-data", "3"], SystemExit)):
+    for argv in (["--mesh-data", "2", "--mesh-mode", "height", "--height", "40"],
+                 ["--mesh-data", "2", "--n_frames", "3"], ["--mesh-data", "3"]):
         try:
             sample_cli.sample_mesh(sample_cli.parse_args(["--device", "cpu", *argv]))
-        except kind as e:
+        except SystemExit as e:
             errors[" ".join(argv)] = str(e)
     out["errors"] = errors
 
     # the CLI under the group: rank 0 writes, every rank holds the latents
-    cli_args = sample_cli.parse_args(["--tiny", "--device", "cpu", "--n_steps", "2",
-                                      "--mesh-data", "2", "--save", save_dir[rank]])
-    result = sample_cli.run(cli_args, sample_cli.build_engine(cli_args), mesh)
-    out["cli"] = (result["paths"] is not None, sorted(os.listdir(save_dir[rank]))
-                  if os.path.isdir(save_dir[rank]) else [], result["latents"].numpy())
+    for mode in ("frames", "height"):
+        save = os.path.join(save_dir[rank], mode)
+        cli_args = sample_cli.parse_args(["--tiny", "--device", "cpu", "--n_steps", "2",
+                                          "--mesh-data", "2", "--mesh-mode", mode,
+                                          "--save", save])
+        result = sample_cli.run(cli_args, sample_cli.build_engine(cli_args),
+                                sample_cli.sample_mesh(cli_args))
+        out[f"cli_{mode}"] = (result["paths"] is not None, sorted(os.listdir(save))
+                              if os.path.isdir(save) else [], result["latents"].numpy())
     return out
 
 

@@ -14,12 +14,12 @@ The engine runs on the card unless ``--device cpu`` is given.
 On N cards the denoise rounds run sharded, one process a card::
 
     torchrun --nproc_per_node N -m vista_tpu_torch.cli.sample --mesh-data N \
-        [--mesh-mode frames|weights]
+        [--mesh-mode frames|height|weights]
 
 ``frames`` splits each video's frames over the ranks (N must divide
-``--n_frames``), ``weights`` slices the UNet's weights over them; every
-rank holds the whole result and rank 0 writes the files. ``height`` is
-not ported and raises.
+``--n_frames``), ``height`` the latent rows of every frame (N must divide
+the latent height, ``--height`` / 8), ``weights`` slices the UNet's weights
+over them; every rank holds the whole result and rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from vista_tpu_torch.data.datasets import (ACTION_MODES, anno_actions, load_anno
                                            load_image)
 from vista_tpu_torch.diffusion.guidance import GuiderConfig
 from vista_tpu_torch.diffusion.sampler import SamplerConfig
-from vista_tpu_torch.engine.engine import HEIGHT_NOT_PORTED, VistaEngine
+from vista_tpu_torch.engine.engine import VistaEngine
 from vista_tpu_torch.engine.rollout import (RolloutConfig, autoregressive_rollout,
                                             draw_rollout_noise)
 from vista_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
@@ -61,8 +61,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="shard the denoise rounds over this many ranks (run under torchrun "
                         "with as many processes; 0 = one process, unsharded)")
     p.add_argument("--mesh-mode", default="frames", choices=["frames", "height", "weights"],
-                   help="sharded-denoise layout: frames (each rank a run of frames), weights "
-                        "(the UNet's weights sliced over the ranks); height is not ported")
+                   help="sharded-denoise layout: frames (each rank a run of frames), height "
+                        "(each rank a band of latent rows), weights (the UNet's weights sliced "
+                        "over the ranks)")
     add_engine_args(p)
     return finish_args(p.parse_args(argv))
 
@@ -85,17 +86,17 @@ def context(args: argparse.Namespace) -> tuple[np.ndarray, Dict[str, np.ndarray]
 
 def sample_mesh(args: argparse.Namespace) -> Mesh:
     """The ``--mesh-data`` mesh: joins torchrun's process group and raises
-    unless it has ``--mesh-data`` ranks, on the JAX CLI's divisibility
-    rule, and for ``--mesh-mode height``. Returns the mesh and sets
-    ``args.device`` to this rank's device."""
-    if args.mesh_mode == "height":
-        raise NotImplementedError(HEIGHT_NOT_PORTED)
+    unless it has ``--mesh-data`` ranks, and on the JAX CLI's divisibility
+    rules. Returns the mesh and sets ``args.device`` to this rank's device."""
     world = int(os.environ.get("WORLD_SIZE", "0"))
     if world != args.mesh_data:
         raise SystemExit(f"--mesh-data {args.mesh_data}: run under torchrun with as many "
                          f"processes (WORLD_SIZE={world or 'unset'})")
     if args.mesh_mode == "frames" and args.n_frames % args.mesh_data:
         raise SystemExit(f"--mesh-data {args.mesh_data} must divide n_frames={args.n_frames}")
+    if args.mesh_mode == "height" and (args.height // 8) % args.mesh_data:
+        raise SystemExit(f"--mesh-data {args.mesh_data} must divide the "
+                         f"latent height {args.height // 8}")
     args.device = init_distributed(args.device)
     return make_mesh({"data": args.mesh_data})
 

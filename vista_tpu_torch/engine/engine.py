@@ -14,7 +14,7 @@ package ties the two). Latents are ``(n, z, h, w)`` (NCHW, frame-major).
   ``decode_overlap`` frames, the seams averaged, one window after the other;
 - ``sample``: one sampling pass (Euler-EDM; batched or sequential CFG,
   stochastic churn from the caller's noise); ``sample_sharded``: the same
-  pass over the ranks of a mesh, frame- or weight-sharded.
+  pass over the ranks of a mesh, frame-, row- or weight-sharded.
 
 The engine runs on the card unless the caller asks for the CPU: building it
 on ``"cuda"`` without one raises.
@@ -35,11 +35,9 @@ from vista_tpu_torch.models.unet import VideoUNet, VideoUNetConfig
 from vista_tpu_torch.models.vae import (VAEConfig, VAEEncoder, VideoVAEDecoder,
                                         gaussian_mode, gaussian_sample)
 from vista_tpu_torch.parallel.frames import frame_parallel
+from vista_tpu_torch.parallel.height import band_of, gather_rows, height_parallel
 from vista_tpu_torch.parallel.mesh import Mesh, gather_frames
 from vista_tpu_torch.parallel.weights import sharded_weights
-
-HEIGHT_NOT_PORTED = ("sharded sampling mode 'height' (sequence-parallel latent rows) is not "
-                     "ported: ROADMAP.md, Queue 1 item 7")
 
 # the conditions the unconditional half of classifier-free guidance zeroes
 UC_ZERO_KEYS: FrozenSet[str] = frozenset(
@@ -202,14 +200,16 @@ class VistaEngine:
           the run's indices in the video); the UNet's temporal stages run
           frame-parallel (``parallel/frames.py``). ``n`` must divide
           ``num_frames``.
+        - ``height``: each rank samples its band of the latent rows of every
+          frame (of ``noise``, ``cond_frame`` and every 4-d condition, the
+          per-video and per-frame ``concat``); the UNet runs on the bands
+          (``parallel/height.py``: conv halos, band-summed GroupNorm, K and
+          V gathered over the bands) and the rows are gathered at the end.
         - ``weights``: the UNet's parameters are sliced over the ranks by
           ``fsdp_shard_dim`` and gathered block by block just in time
           (``parallel/weights.py``); activations stay whole.
-        - ``height`` (sequence-parallel latent rows) is not ported.
         """
-        if mode == "height":
-            raise NotImplementedError(HEIGHT_NOT_PORTED)
-        if mode not in ("frames", "weights"):
+        if mode not in ("frames", "height", "weights"):
             raise ValueError(f"unknown sharded-sampling mode {mode!r}")
         if mesh is None or not mesh.distributed:
             raise ValueError("sample_sharded needs a mesh over a process group (torchrun)")
@@ -217,6 +217,14 @@ class VistaEngine:
         if mode == "weights":
             with sharded_weights(self.unet.blocks(), group, fsdp_min_size):
                 return self.sample(noise, cond, uc, cond_frame, cond_mask, sampler)
+        if mode == "height":
+            with height_parallel(group, *noise.shape[2:]):
+                rows = lambda c: None if c is None else {
+                    k: band_of(v) if v.ndim == 4 else v for k, v in c.items()}
+                out = sample_euler_edm(self.denoise_fn(), band_of(noise), rows(cond), rows(uc),
+                                       cond_frame=band_of(cond_frame), cond_mask=cond_mask,
+                                       config=sampler, num_frames=self.cfg.num_frames)
+                return gather_rows(out)
         t, n = self.cfg.num_frames, mesh.size("data")
         if t % n:
             raise ValueError(f"the data axis of {n} ranks must divide num_frames={t}")

@@ -91,7 +91,8 @@ def autoregressive_rollout(engine: VistaEngine, images: torch.Tensor,
     ``cond_frames`` are set per round). Returns ``(pixels or None, latents)``:
     latents ``(num_rounds * (T - 3) + 3, z, h, w)`` in fp32, pixels the same
     frames in [0, 1]. With ``mesh`` the denoise rounds run sharded over its
-    ``data`` axis (:meth:`VistaEngine.sample_sharded` in ``mesh_mode``);
+    ``data`` axis (:meth:`VistaEngine.sample_sharded` in ``mesh_mode``:
+    ``frames``, ``height`` or ``weights``);
     encode, conditioning and decode run whole on every rank.
     """
     run_round = engine.sample if mesh is None else functools.partial(

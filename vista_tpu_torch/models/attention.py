@@ -16,6 +16,9 @@ checkpoint load with ``strict=True``.
   ported.
 - Temporal block: rows ``(b*s, t, c)``, one per spatial location, t = 25
   frames unpadded.
+- Under ``height_parallel`` (``parallel/height.py``) a frame's tokens are
+  this rank's band of its rows: the spatial self-attention gathers K and V
+  over the bands, the rest is token-local.
 
 With LoRA (``add_lora``, rank-16 ``up(down(x)) * scale`` adapters beside
 q/k/v/out, ``up`` zero-initialised) the self-attentions leave K2 as the JAX
@@ -51,6 +54,7 @@ from vista_tpu_torch.ops.fused_temporal_attn import fused_temporal_self_attn
 from vista_tpu_torch.ops.linear import linear_residual
 from vista_tpu_torch.ops.norms import layer_norm
 from vista_tpu_torch.parallel.frames import frame_group, frame_offset
+from vista_tpu_torch.parallel.height import gather_keys, height_group, level_rows
 from vista_tpu_torch.parallel.mesh import frames_to_tokens, tokens_to_frames
 
 LONG_SEQ = 2048  # launch-count label only: "spatial-long" at s >= this
@@ -108,17 +112,26 @@ class CrossAttention(nn.Module):
         return y + self._lora(f"{name}_adapter", x) if self.add_lora else y
 
     def self_attention(self, x: torch.Tensor, norm: nn.LayerNorm,
-                       site: Optional[str] = None) -> torch.Tensor:
-        """``x + to_out(attn(to_qkv(norm(x))))`` on ``(n, s, c)``."""
-        site = site or ("spatial-long" if x.shape[1] >= LONG_SEQ else "spatial-short")
+                       site: Optional[str] = None,
+                       width: Optional[int] = None) -> torch.Tensor:
+        """``x + to_out(attn(to_qkv(norm(x))))`` on ``(n, s, c)``. ``width``:
+        the spatial blocks' frame width in tokens; under ``height_parallel``
+        x is this rank's band of a frame's rows, and K and V are gathered
+        over the bands (the queries stay local)."""
+        gather = width is not None and height_group() is not None
+        keys = level_rows(width) * width if gather else x.shape[1]
+        site = site or ("spatial-long" if keys >= LONG_SEQ else "spatial-short")
         if self.add_lora:
             xn = layer_norm(x, norm.weight, norm.bias, norm.eps, site=site)
             q, k, v = (self._proj(p, xn) for p in ("q", "k", "v"))
-            o = attention_packed(q, k, v, self.heads, site=site)
-            return x + self.to_out(o) + self._lora("out_adapter", o)
-        q, k, v = fused_ln_qkv(x, norm.weight, norm.bias, self.to_q.weight,
-                               self.to_k.weight, self.to_v.weight, norm.eps, bwd_site=site)
+        else:
+            q, k, v = fused_ln_qkv(x, norm.weight, norm.bias, self.to_q.weight,
+                                   self.to_k.weight, self.to_v.weight, norm.eps, bwd_site=site)
+        if gather:
+            k, v = gather_keys(k, v, width)
         o = attention_packed(q, k, v, self.heads, site=site)
+        if self.add_lora:
+            return x + self.to_out(o) + self._lora("out_adapter", o)
         out = self.to_out[0]
         return linear_residual(o, out.weight, out.bias.float(), x, site="attn-out")
 
@@ -171,8 +184,10 @@ class TransformerBlock(nn.Module):
                                     action_control=action_control)
         self.norm1, self.norm2, self.norm3 = (nn.LayerNorm(dim) for _ in range(3))
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.attn1.self_attention(x, self.norm1)
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
+                width: Optional[int] = None) -> torch.Tensor:
+        """x ``(n, s, c)``, s tokens of frames ``width`` tokens wide."""
+        x = self.attn1.self_attention(x, self.norm1, width=width)
         x = x + self.attn2.cross(context)
         return self.ff.residual(x, self.norm3)
 
@@ -270,7 +285,7 @@ class SpatialVideoTransformer(nn.Module):
         t_emb = timestep_embedding(frame_idx, self.channels, self.max_time_embed_period)
         pos = self.time_pos_embed(t_emb.to(xs.dtype))[:, None]
         for block, time_block in zip(self.transformer_blocks, self.time_stack):
-            xs = block(xs, context)
+            xs = block(xs, context, w)
             x_mix = time_block(xs + pos, num_frames, time_context)
             xs = self.time_mixer(xs, x_mix)
         return from_rows(self.proj_out(xs), h, w) + x

@@ -6,6 +6,11 @@ Images are ``(b*t, c, h, w)`` tensors held channels-last, so the
 VideoResBlock's temporal branch runs on kernel K4 twice: GN + SiLU + 3-tap
 frame conv + emb, then GN + SiLU + conv with the residual and the
 AlphaBlender collapsed into ``x + (1 - a) * h``.
+
+Under ``height_parallel`` (``parallel/height.py``) every block takes this
+rank's band of latent rows: the spatial convs read the neighbour bands'
+rows, the GroupNorms sum over the bands, and the temporal branch, whose
+convs are token-local, only sums its K4 statistics over them.
 """
 
 from __future__ import annotations
@@ -15,10 +20,11 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vista_tpu_torch.models.layers import AlphaBlender, GroupNorm32, from_rows, to_rows
+from vista_tpu_torch.models.layers import AlphaBlender, Conv2d, GroupNorm32, from_rows, to_rows
 from vista_tpu_torch.ops.temporal_conv import (fused_gn_silu_conv3_emb,
                                                fused_gn_silu_conv3_res, gn_affine)
 from vista_tpu_torch.parallel.frames import frame_group
+from vista_tpu_torch.parallel.height import band_conv, height_group
 from vista_tpu_torch.parallel.mesh import frames_to_tokens, gather_frames, tokens_to_frames
 
 
@@ -31,12 +37,12 @@ class ResBlock(nn.Module):
         super().__init__()
         self.in_layers = nn.Sequential(
             GroupNorm32(channels), nn.SiLU(),
-            nn.Conv2d(channels, out_channels, 3, padding=1))
+            Conv2d(channels, out_channels, 3, padding=1))
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, out_channels))
         self.out_layers = nn.Sequential(
             GroupNorm32(out_channels), nn.SiLU(), nn.Dropout(0.0),
-            nn.Conv2d(out_channels, out_channels, 3, padding=1))
-        self.skip_connection = (nn.Conv2d(channels, out_channels, 1)
+            Conv2d(out_channels, out_channels, 3, padding=1))
+        self.skip_connection = (Conv2d(channels, out_channels, 1)
                                 if channels != out_channels else nn.Identity())
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -70,12 +76,13 @@ class TemporalResBlock(nn.Module):
             xs = frames_to_tokens(xs, b, group, seq_major=False)
             e = gather_frames(e, b, group)
             num_frames *= dist.get_world_size(group)
+        stats = group if group is not None else height_group()  # the ranks holding the tokens
         n1, c1 = self.in_layers[0], self.in_layers[2]
-        sc, sh = gn_affine(xs, n1.weight, n1.bias, num_frames, n1.eps, group)
+        sc, sh = gn_affine(xs, n1.weight, n1.bias, num_frames, n1.eps, stats)
         h = fused_gn_silu_conv3_emb(xs, sc, sh, c1.weight, c1.bias.float(), e,
                                     num_frames)
         n2, c2 = self.out_layers[0], self.out_layers[3]
-        sc, sh = gn_affine(h, n2.weight, n2.bias, num_frames, n2.eps, group)
+        sc, sh = gn_affine(h, n2.weight, n2.bias, num_frames, n2.eps, stats)
         out = fused_gn_silu_conv3_res(h, sc, sh, c2.weight, c2.bias.float(), xs,
                                       res_scale, num_frames)
         if group is not None:
@@ -104,9 +111,11 @@ class Upsample(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if height_group() is not None:
+            return band_conv(self.conv, x, upsample=True)
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
 
 
@@ -115,7 +124,7 @@ class Downsample(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.op = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.op = Conv2d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.op(x)

@@ -3,6 +3,9 @@
 Dtype policy: parameters and activations are in the model's dtype (bf16 on
 the card); normalisation statistics are computed in fp32 and the time
 embeddings are built in fp32, as in the JAX package.
+
+Under :func:`~vista_tpu_torch.parallel.height.height_parallel` the UNet's
+GroupNorms and spatial convs run on this rank's band of latent rows.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from vista_tpu_torch.parallel.height import band_conv, band_group_norm, height_group
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -34,14 +39,29 @@ def num_groups(channels: int, groups: int = 32) -> int:
 class GroupNorm32(nn.GroupNorm):
     """GroupNorm computed in fp32 whatever the activation dtype. Works on
     ``(n, c, ...)`` of any rank, so a 5-D ``(b, c, t, h, w)`` video is
-    normalised over its frames too."""
+    normalised over its frames too. Under ``height_parallel`` an image
+    ``(n, c, band rows, w)`` is normalised over the whole level (statistics
+    summed over the bands)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__(num_groups(channels), channels, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if height_group() is not None:
+            return band_group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
         return F.group_norm(x.float(), self.num_groups, self.weight.float(),
                             self.bias.float(), self.eps).to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """The UNet's spatial conv (3x3 with padding 1 at stride 1 or 2, or
+    1x1): ``nn.Conv2d``, and under ``height_parallel`` the same conv on this
+    rank's band of rows with the rows it reads from the other bands."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if height_group() is not None:
+            return band_conv(self, x)
+        return super().forward(x)
 
 
 def timestep_mlp(in_dim: int, out_dim: int) -> nn.Sequential:

@@ -17,6 +17,11 @@ wraps every top-level block (VideoResBlock, SpatialVideoTransformer) in
 ``torch.utils.checkpoint`` when gradients are recorded: the backward
 recomputes each block's forward instead of storing its activations, as the
 JAX package's ``nn.remat`` does.
+
+Under ``height_parallel`` (``parallel/height.py``, sampling) ``x`` is this
+rank's band of latent rows and the result its band of the output: every
+layer runs on bands of its level, cut by one rule at every level, so the
+decoder's skips concatenate band by band.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from vista_tpu_torch.models.attention import SpatialVideoTransformer
 from vista_tpu_torch.models.blocks import Downsample, Upsample, VideoResBlock
-from vista_tpu_torch.models.layers import GroupNorm32, timestep_embedding, timestep_mlp
+from vista_tpu_torch.models.layers import Conv2d, GroupNorm32, timestep_embedding, timestep_mlp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +104,7 @@ class VideoUNet(nn.Module):
                 action_control=cfg.action_control)
 
         self.input_blocks = nn.ModuleList(
-            [nn.ModuleList([nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)])])
+            [nn.ModuleList([Conv2d(cfg.in_channels, ch0, 3, padding=1)])])
         ch, ds, skip_chs = ch0, 1, [ch0]
         for level, mult in enumerate(cfg.channel_mult):
             for _ in range(cfg.num_res_blocks):
@@ -129,7 +134,7 @@ class VideoUNet(nn.Module):
                 self.output_blocks.append(nn.ModuleList(layers))
 
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
-                                 nn.Conv2d(ch0, cfg.out_channels, 3, padding=1))
+                                 Conv2d(ch0, cfg.out_channels, 3, padding=1))
 
     def blocks(self):
         """The units that weight-sharded sampling gathers one at a time: the

@@ -328,10 +328,12 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_plain(q, k, v, heads, valid_k, want_lse)
     _check_qkv(q, k, v, heads)
     b, s_q, _ = q.shape
-    plan = attention_plan(b, s_q, k.shape[1], heads, _kv_len(k.shape[1], valid_k), route,
-                          sm_count(q.device.index or 0))
     out = torch.empty_like(q)
     lse = torch.empty(b, heads, s_q, dtype=torch.float32, device=q.device) if want_lse else None
+    if b * s_q == 0:  # no queries (an empty band of height-parallel sampling): nothing to launch
+        return (out, lse) if want_lse else out
+    plan = attention_plan(b, s_q, k.shape[1], heads, _kv_len(k.shape[1], valid_k), route,
+                          sm_count(q.device.index or 0))
     _build.launch("vk_attention_short" if plan.route == "short" else "vk_attention_wgmma",
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(lse),
                   b, s_q, plan.s_k, heads, plan.kv_len, (HEAD_DIM ** -0.5) * _LOG2E,

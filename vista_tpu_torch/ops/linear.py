@@ -284,6 +284,8 @@ def _ln_linear(x, ln_w, ln_b, w, bias, epilogue, splits, eps, site):
         n, seg = n_w, n_w // splits
         out = torch.empty(splits, *lead, seg, dtype=x.dtype, device=x.device)
         mode = 0
+    if m == 0:  # no rows (an empty band of height-parallel sampling): nothing to launch
+        return out
     stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)  # (mean, rstd) per row
     _build.launch("vk_ln_linear", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
                   w.data_ptr(), _build.ptr(bias), stats.data_ptr(), out.data_ptr(), m, k, n,
@@ -395,6 +397,8 @@ def _linear_residual(a, w, bias, residual, site):
     k = a.shape[-1]
     m = a.numel() // k if k else 0
     n = w.shape[0]
+    if a.shape[:-1].numel() == 0:  # no rows (an empty band of height-parallel sampling)
+        return torch.empty_like(residual)
     plan = linear_residual_plan(m, k, n, sm_count(a.device.index or 0))
     _build.check(a, "a", torch.bfloat16)
     _build.check(w, "w", torch.bfloat16, (n, k))

@@ -141,10 +141,12 @@ def layer_norm_kernel(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     if _build.on_cpu(x):
         return layer_norm_plain(x, ln_w, ln_b, eps)
     c = x.shape[-1]
-    plan = ln_plan(x.numel() // c, c, sm_count(x.device.index or 0))
     _build.check(x, "x", torch.bfloat16)
     _check_params([("ln_w", ln_w), ("ln_b", ln_b)], c)
     out = torch.empty_like(x)
+    if x.numel() == 0:  # no rows (an empty band of height-parallel sampling): nothing to launch
+        return out
+    plan = ln_plan(x.numel() // c, c, sm_count(x.device.index or 0))
     _build.launch("vk_layer_norm", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
                   out.data_ptr(), x.numel() // c, c, plan.lanes, plan.grid,
                   int(ln_w.dtype == torch.bfloat16), float(eps))

@@ -117,8 +117,8 @@ def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               num_frames: int, eps: float = 1e-5, group=None):
     """x ``(b*t, s, c)`` -> fp32 ``scale``, ``shift`` of shape ``(b*t, c)``.
 
-    With ``group`` (frame parallelism: each rank holds its own tokens of
-    every frame) the statistics are fp32 sums over this rank's tokens,
+    With ``group`` (frame or height parallelism: each rank holds its own
+    tokens of every frame) the statistics are fp32 sums over this rank's tokens,
     summed over the group, then divided by the whole count. Sampling only:
     no gradient flows through the sum."""
     bt, s, c = x.shape
@@ -236,6 +236,8 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     if _build.on_cpu(x, w):
         return gn_silu_conv3_plain(x, scale, shift, w, bias, num_frames, emb,
                                    residual, res_scale)
+    if x.shape[1] == 0:  # no rows (an empty band of height-parallel sampling): nothing to launch
+        return x.new_empty(*x.shape[:2], w.shape[0])
     plan = _plan(x, w, num_frames)  # refuses a shape before any launch
     if res_scale is not None:
         res_scale = res_scale.reshape(1)

@@ -1,3 +1,4 @@
 """Multi-GPU: the process group and the ``data`` x ``fsdp`` mesh
-(``mesh``), frame parallelism of the UNet's temporal stages (``frames``)
-and weight-sharded sampling (``weights``)."""
+(``mesh``), frame parallelism of the UNet's temporal stages (``frames``),
+sequence parallelism over latent rows (``height``) and weight-sharded
+sampling (``weights``)."""

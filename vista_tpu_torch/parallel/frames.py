@@ -30,9 +30,11 @@ _GROUP = contextvars.ContextVar("frame_parallel_group", default=None)
 @contextlib.contextmanager
 def frame_parallel(group):
     """For the span of the block the temporal stages run frame-parallel
-    over ``group``."""
-    if _GROUP.get() is not None:
-        raise RuntimeError("frame_parallel does not nest")
+    over ``group``. Does not nest, with itself or with ``height_parallel``."""
+    from vista_tpu_torch.parallel.height import height_group  # height imports this module
+
+    if _GROUP.get() is not None or height_group() is not None:
+        raise RuntimeError("frame_parallel does not nest with itself or height_parallel")
     token = _GROUP.set(group)
     try:
         yield
