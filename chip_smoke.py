@@ -49,8 +49,12 @@ Phases, each timed on its own line:
    bf16 against the CPU in fp32 (the loss, and every UNet gradient against
    its own size, beside the same error of bf16 on the CPU), four
    micro-steps (two optimizer steps) with the launch counts of every kernel
-   and checks of which tensors move after which call, and a traced
-   optimizer step;
+   and checks of which tensors move after which call, a traced optimizer
+   step, and the selective-checkpointing modes (``remat_max_ds`` 2 and 1,
+   ``names``, ``dots``): each one's micro-step from full remat's state,
+   batch and draws bit-identical to full remat's (loss and every gradient),
+   its launches as predicted from the config, the memory its forward keeps,
+   its peak, and two optimizer steps of each in turns;
 9. sampling_modes (after slice): the headline request (576x1024, 25 frames,
    triangle CFG 2.5) at 5 steps on one noise, batched, sequential and
    batched with churn (``s_churn`` 1, eps from a ``torch.Generator`` on the
@@ -81,6 +85,7 @@ before it. Tables too long for the end of the output go to ``chiprun_out/``.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -2323,13 +2328,158 @@ def phase1_run(seed):
     trainer.apply = apply
     prof = _device_profile("phase1_optimizer_step", lambda: [
         trainer(batch, draw_train(engine, tcfg, batch, gen)) for _ in range(k)])
+    modes = remat_modes_run(engine, trainer, tcfg, batch, gen, sites)
     OUT.mkdir(exist_ok=True)
     (OUT / "phase1.json").write_text(json.dumps(dict(
         card=CARD, micro_steps=steps, s_per_micro_step=s_micro, s_per_optimizer_step=s_opt,
-        optimizer_share=opt_share, peak_gib=peak, launches=sites, profile=prof), indent=1))
+        optimizer_share=opt_share, peak_gib=peak, launches=sites, profile=prof,
+        remat_modes={name: {k: v for k, v in m.items() if k != "launches"}
+                     for name, m in modes.items()}), indent=1))
     del engine, trainer
     torch.cuda.empty_cache()
-    return launches
+    return {"phase1": launches, **{f"phase1_{name}": m["launches"]
+                                   for name, m in modes.items() if name != "full"}}
+
+
+# Selective checkpointing in the phase-1 step: each mode's micro-step from
+# the state, batch and draws of a full-remat one, and an optimizer step of
+# each. ``remat_max_ds: 1`` stores every ds2-ds8 block (see PERF.md).
+REMAT_MODES = {"full": {}, "remat_max_ds_2": dict(remat_max_ds=2),
+               "names": dict(remat_policy="names"), "dots": dict(remat_policy="dots"),
+               "remat_max_ds_1": dict(remat_max_ds=1)}
+# a SpatialVideoTransformer's forward launches by site (the spatial K1's site
+# is spatial-long from 2048 keys); "names" tags: K1's (o, lse), the three
+# feed-forwards and the temporal self-attention (K2 + K1 + K3)
+REMAT_ATTN_SITES = {"ln_linear/qkv": (1, False), "attention/spatial": (1, True),
+                    "linear_residual/attn-out": (1, False), "ln_linear/ff": (3, True),
+                    "linear_residual/ff": (3, True), "ln_linear/temporal-qkv": (1, True),
+                    "attention/temporal": (1, True), "linear_residual/temporal-out": (1, True)}
+# a VideoResBlock's: K4 twice, each a pre-pass and a conv; no tag
+REMAT_RES_SITES = {"gn_silu_conv3/emb": (1, False), "gn_silu_conv3/res": (1, False),
+                   "gn_silu/emb": (1, False), "gn_silu/res": (1, False)}
+
+
+def unet_blocks(cfg):
+    """(kind, ds) of every VideoResBlock ("res") and SpatialVideoTransformer
+    ("attn") in the order the UNet runs them, from the config alone: the
+    JAX package's ds bookkeeping (``vista_tpu/models/unet.py``)."""
+    out, ds, levels = [], 1, len(cfg.channel_mult)
+    for level in range(levels):
+        for _ in range(cfg.num_res_blocks):
+            out += [("res", ds)] + ([("attn", ds)] if ds in cfg.attention_resolutions else [])
+        ds *= 2 if level != levels - 1 else 1
+    out += [("res", ds), ("attn", ds), ("res", ds)]
+    for level in reversed(range(levels)):
+        for i in range(cfg.num_res_blocks + 1):
+            out += [("res", ds)] + ([("attn", ds)] if ds in cfg.attention_resolutions else [])
+            ds //= 2 if level != 0 and i == cfg.num_res_blocks else 1
+    return out
+
+
+def predicted_remat_launches(cfg, full, mode, h, w):
+    """One micro-step's launches under ``mode`` from full remat's ``full``
+    (kernel and kernel/site counts): full remat runs each block's forward
+    twice; a block deeper than ``remat_max_ds`` runs it once, and under
+    ``names`` a checkpointed block's tagged sites run once."""
+    out = collections.Counter(full)
+    for kind, ds in unet_blocks(cfg):
+        deep = mode.get("remat_max_ds") is not None and ds > mode["remat_max_ds"]
+        keys = ((h // 8 // ds) * (w // 8 // ds))
+        for site, (n, tag) in (REMAT_ATTN_SITES if kind == "attn" else REMAT_RES_SITES).items():
+            if not (deep or (tag and mode.get("remat_policy") == "names")):
+                continue
+            if site == "attention/spatial":
+                site += "-long" if keys >= 2048 else "-short"
+            kernel = site.split("/")[0]
+            route = ([f"attention:{'short' if site.endswith('temporal') else 'wgmma'}"]
+                     if kernel == "attention" else [])
+            for key in (site, kernel, *route):
+                out[key] -= n
+    return {k: v for k, v in out.items() if v}
+
+
+def remat_modes_run(engine, trainer, tcfg, batch, gen, main_sites):
+    """Each of :data:`REMAT_MODES` on the phase-1 engine. First one
+    micro-step (``Trainer.loss_and_grads``, no update) of each from the same
+    state, batch and draws: its loss and every gradient must be bit-identical
+    to full remat's, its launches must equal the prediction (full remat's: a
+    quarter of ``main_sites``, the phase's four micro-steps); its peak memory
+    is the forward and backward's, and what the UNet's forward kept for the
+    backward is the memory held after it less before it. Then two optimizer steps
+    (``accum_steps`` micro-steps each) of every mode, in turns (the modes in
+    order, then in reverse), timed, with the peak over them."""
+    from vista_tpu_torch.engine.training import draw_train
+    from vista_tpu_torch.ops import _build
+
+    unet, base = engine.unet, engine.unet.cfg
+    draws = draw_train(engine, tcfg, batch, gen)
+    out, ref, faults, held = {}, None, [], []
+    hooks = [unet.register_forward_pre_hook(lambda *_: held.append(torch.cuda.memory_allocated())),
+             unet.register_forward_hook(lambda *_: held.append(torch.cuda.memory_allocated()))]
+    try:
+        for name, mode in REMAT_MODES.items():
+            unet.cfg = dataclasses.replace(base, **mode)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_counts()
+            held.clear()
+            loss, _ = trainer.loss_and_grads(batch, draws)
+            if len(held) != 2:
+                raise SystemExit(f"phase 1 remat modes: {len(held) // 2} UNet calls a micro-step")
+            kept = (held[1] - held[0]) / 2**30
+            grads = {n: p.grad for n, p in trainer.params.items() if p.grad is not None}
+            got = (float(loss), list(grads), checksums(list(grads.values())))
+            del grads
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            launches = {**_build.LAUNCHES, **_build.SITES}
+            ref = ref or got
+            identical = got[0] == ref[0] and got[1] == ref[1] and torch.equal(got[2], ref[2])
+            want = predicted_remat_launches(base, out["full"]["launches"], mode, 576, 1024) \
+                if out else {**_build.LAUNCHES, **{k: v / PHASE1_MICRO_STEPS
+                                                   for k, v in main_sites.items()}}
+            wrong = {k: (launches.get(k, 0), want.get(k, 0)) for k in set(launches) | set(want)
+                     if launches.get(k, 0) != want.get(k, 0)}
+            out[name] = dict(mode=mode, loss=got[0], identical=identical,
+                             peak_gib_micro_step=peak, unet_kept_gib=kept, launches=launches,
+                             micro_s=[])
+            log(f"  remat {name} {mode}: loss {got[0]!r} and {len(got[1])} gradients "
+                f"{'bit-identical to' if identical else 'DIFFER from'} full remat's; peak "
+                f"{peak:.2f} GiB, the UNet's forward kept {kept:.2f} GiB; K1 {launches.get('attention', 0)} (wgmma "
+                f"{launches.get('attention:wgmma', 0)}, short "
+                f"{launches.get('attention:short', 0)}), K2 {launches.get('ln_linear', 0)}, "
+                f"K3 {launches.get('linear_residual', 0)}, K4 {launches.get('gn_silu_conv3', 0)}"
+                f" a micro-step; {'as predicted' if not wrong else f'NOT as predicted: {wrong}'}")
+            if not identical:
+                faults.append(f"{name}: the loss or a gradient differs from full remat's")
+            if wrong:
+                faults.append(f"{name}: launches (got, predicted) {wrong}")
+        for name in [*REMAT_MODES, *reversed(REMAT_MODES)]:
+            unet.cfg = dataclasses.replace(base, **REMAT_MODES[name])
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(tcfg.accum_steps):
+                d = draw_train(engine, tcfg, batch, gen)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                trainer(batch, d)
+                torch.cuda.synchronize()
+                out[name]["micro_s"].append(time.perf_counter() - t1)
+            out[name]["peak_gib"] = max(out[name].get("peak_gib", 0.0),
+                                        torch.cuda.max_memory_allocated() / 2**30)
+    finally:
+        unet.cfg = base
+        for h in hooks:
+            h.remove()
+    k = tcfg.accum_steps
+    for name, m in out.items():
+        opt = [sum(m["micro_s"][i:i + k]) for i in range(0, len(m["micro_s"]), k)]
+        m.update(s_per_micro_step=sum(m["micro_s"]) / len(m["micro_s"]),
+                 s_per_optimizer_step=opt)
+        log(f"  remat {name}: {m['s_per_micro_step']:.3f} s per micro-step, optimizer steps "
+            f"{', '.join(f'{t:.3f}' for t in opt)} s, peak {m['peak_gib']:.2f} GiB")
+    log(f"  card {CARD}")
+    if faults:
+        raise SystemExit("phase 1 remat modes: " + "; ".join(faults))
+    return out
 
 
 # ---------------------------------------------------------------- phase 9
@@ -3172,7 +3322,7 @@ def main():
     kernels = []
     paths = {"sample": sample, "sampling_modes": modes, "rollout": rollout["rollout"],
              "reward": rollout["reward"], "train": train, "train_cli": train_cli["train_cli"],
-             "convert": train_cli["convert"], "phase1": phase1, **parallel, "quality": quality}
+             "convert": train_cli["convert"], **phase1, **parallel, "quality": quality}
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         timed = mine[0]  # the first (largest) main-path shape of the kernel

@@ -44,7 +44,9 @@ from vista_tpu_torch.data import datasets, native, pipeline
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = sorted((ROOT / "configs").glob("*.yaml"))
-UNET_TPU_ONLY = ("attn_backend", "remat_max_ds", "remat_policy")
+UNET_TPU_ONLY = ("attn_backend",)
+REMAT_OVERRIDES = ["engine.unet.remat_max_ds=2", "engine.unet.remat_max_ds=1",
+                   "engine.unet.remat_policy=names", "engine.unet.remat_policy=dots"]
 SIZE = 64
 
 
@@ -99,13 +101,29 @@ def test_tpu_only_keys(capsys):
     nulls = ["engine.unet.remat_max_ds=null", "engine.unet.remat_policy=null"]
     assert config.load_config(runner.ExperimentConfig, [path], nulls) == config.load_config(
         runner.ExperimentConfig, [path])
-    for bad in ("engine.unet.remat_max_ds=2", "engine.unet.remat_policy=names",
-                "engine.unet.remat_policy=dots"):
-        with pytest.raises(ValueError, match="remats every block"):
-            config.load_config(runner.ExperimentConfig, [path], [bad])
+    for key, value in (("remat_max_ds", 2), ("remat_policy", "names"),
+                       ("remat_policy", "dots")):
+        override = [f"engine.unet.{key}={value}"]
+        cfg = config.load_config(runner.ExperimentConfig, [path], override)
+        assert getattr(cfg.engine.unet, key) == value
+        assert config.to_dict(cfg) == _jax_dict([path], override)
+    with pytest.raises(ValueError, match="unknown remat_policy 'bogus'"):
+        config.load_config(runner.ExperimentConfig, [path], ["engine.unet.remat_policy=bogus"])
     # the keys are the UNet's: anywhere else they are unknown
     with pytest.raises(KeyError):
         config.load_config(runner.ExperimentConfig, [path], ["engine.vae.attn_backend=xla"])
+
+
+@pytest.mark.parametrize("override", REMAT_OVERRIDES)
+@pytest.mark.parametrize("path", [p for p in CONFIGS if p.name.startswith("vista_")],
+                         ids=lambda p: p.name)
+def test_remat_keys_load_as_jax(path, override):
+    """The selective-checkpointing keys from a dotlist over each shipped
+    Vista recipe: the values the JAX loader gives, and a round trip."""
+    cfg = config.load_config(runner.ExperimentConfig, [str(path)], [override])
+    key, value = override.rsplit(".", 1)[1].split("=")
+    assert cfg.engine.unet.remat and str(getattr(cfg.engine.unet, key)) == value
+    assert config.to_dict(cfg) == _jax_dict([str(path)], [override])
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)

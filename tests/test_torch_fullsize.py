@@ -182,7 +182,7 @@ def _as_plain(v):
     return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
 
 
-UNET_TPU_ONLY = {"attn_backend", "remat_max_ds", "remat_policy"}
+UNET_TPU_ONLY = {"attn_backend"}
 
 
 def _without_tpu_only(v):

@@ -12,6 +12,9 @@ JAX package, on the CPU in fp32, with inputs made with numpy from a seed:
   order);
 - ``sampling_utils``, ``sigma_to_idx``, ``precondition_denoise_discrete``
   and ``legacy_ddpm_sigmas`` (n < 1000 and n = 1000) against JAX;
+- the loss's 3-D Fourier high-pass (mask and filter, within 1e-5) and the
+  discrete-table sigma draw (the JAX draw's indices handed to the port)
+  against JAX;
 - the tiny engine, torch only: ``sample`` in sequential mode equals batched
   within 1e-5, and with churn from a ``torch.Generator`` keeps frame 0
   pinned.
@@ -28,12 +31,16 @@ import jax.numpy as jnp
 
 from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu.diffusion import denoiser as jden
+from vista_tpu.diffusion import loss as jloss
+from vista_tpu.diffusion import sigma_sampling as jsigma
 from vista_tpu.diffusion import discretization as jdisc
 from vista_tpu.diffusion import sampling_utils as jsu
 from vista_tpu.diffusion.guidance import GuiderConfig as JGuiderConfig
 from vista_tpu.diffusion.sampler import SamplerConfig as JSamplerConfig
 from vista_tpu.diffusion.sampler import sample_euler_edm as jsample
 from vista_tpu_torch.diffusion import denoiser as den
+from vista_tpu_torch.diffusion import loss
+from vista_tpu_torch.diffusion import sigma_sampling
 from vista_tpu_torch.diffusion import discretization as disc
 from vista_tpu_torch.diffusion import sampling_utils as su
 from vista_tpu_torch.diffusion.guidance import GuiderConfig
@@ -180,6 +187,29 @@ def test_legacy_ddpm_sigmas_match_jax(n):
                           np.asarray(jdisc.legacy_ddpm_sigmas(n, append_zero=False)))
     with pytest.raises(ValueError):
         disc.legacy_ddpm_sigmas(1001)
+
+
+@pytest.mark.parametrize("t,h,w,d_s,d_t", [(5, 8, 12, 0.25, 0.25), (4, 6, 6, 0.3, 0.5)])
+def test_fourier_highpass_3d_matches_jax(t, h, w, d_s, d_t):
+    mask = loss.fourier_highpass_mask_3d(t, h, w, d_s, d_t)
+    jmask = jloss.fourier_highpass_mask_3d(t, h, w, d_s, d_t)
+    assert np.array_equal(mask, jmask) and 0 < mask.sum() < mask.size
+    x = np.random.default_rng(t).standard_normal((2 * t, 3, h, w)).astype(np.float32)
+    got = loss.fourier_filter_highpass_3d(torch.from_numpy(x), torch.from_numpy(mask), t)
+    ref = jloss.fourier_filter_highpass_3d(jnp.asarray(x.transpose(0, 2, 3, 1)),
+                                           jnp.asarray(jmask), t)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    assert _rel(got.permute(0, 2, 3, 1), ref) <= TOL
+
+
+@pytest.mark.parametrize("n", [1, 6])
+def test_discrete_sigmas_match_jax(n):
+    table = disc.legacy_ddpm_sigmas(1000, append_zero=False)
+    key = jax.random.key(n)
+    index = np.array(jax.random.randint(key, (n,), 0, table.shape[0]))  # the JAX draw's
+    got = sigma_sampling.discrete_sigmas(torch.from_numpy(index), table, 5)
+    ref = jsigma.sample_discrete_sigmas(key, jnp.asarray(table.numpy()), n, 5)
+    assert got.shape == (n * 5,) and np.array_equal(got.numpy(), np.asarray(ref))
 
 
 @pytest.mark.parametrize("quantize", [True, False])

@@ -6,12 +6,10 @@ it is loaded: an unknown key raises. Files merge left to right, then
 ``a.b.c=value`` dotlist overrides apply.
 
 The shipped configs were written for the JAX package, whose
-``VideoUNetConfig`` has three fields that only the TPU reads
-(:data:`UNET_TPU_ONLY`). The port knows them by name: ``attn_backend`` is
-read and dropped with a notice (the card always runs the hand-written
-kernels, the CPU their plain versions); ``remat_max_ds`` and
-``remat_policy`` change what remat stores and raise unless null (the port
-remats every block whole).
+``VideoUNetConfig`` has one field that only the TPU reads
+(:data:`UNET_TPU_ONLY`): ``attn_backend`` is read and dropped with a notice
+(the card always runs the hand-written kernels, the CPU their plain
+versions). ``remat_max_ds`` and ``remat_policy`` are the port's too.
 """
 
 from __future__ import annotations
@@ -23,7 +21,7 @@ from typing import Any, Dict, Optional, Sequence, Type, TypeVar
 
 T = TypeVar("T")
 
-UNET_TPU_ONLY = ("attn_backend", "remat_max_ds", "remat_policy")
+UNET_TPU_ONLY = ("attn_backend",)
 
 
 def _convert(value, field_type):
@@ -55,20 +53,14 @@ def _convert(value, field_type):
 
 
 def _drop_tpu_only(cls, data: Dict[str, Any]) -> Dict[str, Any]:
-    """The UNet config without the JAX package's TPU-only keys: each is
-    dropped, ``remat_max_ds`` and ``remat_policy`` only when null."""
+    """The UNet config without the JAX package's TPU-only keys."""
     from vista_tpu_torch.models.unet import VideoUNetConfig
 
-    if cls is not VideoUNetConfig or not set(UNET_TPU_ONLY) & set(data):
+    if cls is not VideoUNetConfig or "attn_backend" not in data:
         return data
-    for key in ("remat_max_ds", "remat_policy"):
-        if data.get(key) is not None:
-            raise ValueError(f"engine.unet.{key}={data[key]!r}: the port remats every block "
-                             "whole; only null is accepted")
-    if "attn_backend" in data:
-        print(f"note: engine.unet.attn_backend={data['attn_backend']!r} is a TPU setting and "
-              "has no effect here (the card runs the port's kernels, the CPU their plain "
-              "versions)")
+    print(f"note: engine.unet.attn_backend={data['attn_backend']!r} is a TPU setting and "
+          "has no effect here (the card runs the port's kernels, the CPU their plain "
+          "versions)")
     return {k: v for k, v in data.items() if k not in UNET_TPU_ONLY}
 
 

@@ -87,6 +87,29 @@ def fourier_filter_highpass(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor
     return torch.fft.ifftn(f, dim=(-2, -1)).real.to(x.dtype)
 
 
+def fourier_highpass_mask_3d(t: int, h: int, w: int, d_s: float = 0.25,
+                             d_t: float = 0.25) -> np.ndarray:
+    """The spatiotemporal :func:`fourier_highpass_mask`: 0 where
+    ``(d_s/d_t (2k/T - 1))^2 + (2i/H - 1)^2 + (2j/W - 1)^2 <= 2 d_s``, else 1."""
+    tt = ((d_s / d_t) * (2.0 * np.arange(t) / t - 1.0)) ** 2
+    ii = (2.0 * np.arange(h) / h - 1.0) ** 2
+    jj = (2.0 * np.arange(w) / w - 1.0) ** 2
+    d_square = tt[:, None, None] + ii[None, :, None] + jj[None, None, :]
+    return (d_square > 2.0 * d_s).astype(np.float32)
+
+
+def fourier_filter_highpass_3d(x: torch.Tensor, mask: torch.Tensor,
+                               num_frames: int) -> torch.Tensor:
+    """High-pass each video of frame-major ``(b*t, c, h, w)`` through a 3-D
+    FFT over (t, h, w); ``mask`` ``(t, h, w)``. No shipped config uses it."""
+    bt, c, h, w = x.shape
+    dims = (1, 3, 4)
+    x5 = x.reshape(bt // num_frames, num_frames, c, h, w).to(torch.complex64)
+    f = torch.fft.fftshift(torch.fft.fftn(x5, dim=dims), dim=dims)
+    f = torch.fft.ifftshift(f * mask[:, None], dim=dims)
+    return torch.fft.ifftn(f, dim=dims).real.reshape(bt, c, h, w).to(x.dtype)
+
+
 def _dynamics_weight(predict, target, num_frames: int, ord_: int) -> torch.Tensor:
     """``1 + normalize(inter-frame difference error)``, no gradient: the
     error L_p-normalised over (frames - 1, h, w) per (video, channel), 0 for

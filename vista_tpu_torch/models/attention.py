@@ -20,6 +20,12 @@ checkpoint load with ``strict=True``.
   this rank's band of its rows: the spatial self-attention gathers K and V
   over the bands, the rest is token-local.
 
+Under ``remat_policy: "names"`` (``ops/remat.py``) the tagged tensors are
+the JAX package's, each path's own: ``attn1_out`` (K1's output without LoRA,
+the out-projection with it), ``attn2_out`` (the cross term), ``ff_out``
+(every feed-forward, residual included) and ``temporal_attn_out`` (the
+temporal self-attention, residual included without LoRA, its branch with).
+
 With LoRA (``add_lora``, rank-16 ``up(down(x)) * scale`` adapters beside
 q/k/v/out, ``up`` zero-initialised) the self-attentions leave K2 as the JAX
 package does (``pre_ln_self_attention`` and ``_TemporalCore``): the
@@ -53,6 +59,7 @@ from vista_tpu_torch.ops.fused_qkv import fused_ln_qkv
 from vista_tpu_torch.ops.fused_temporal_attn import fused_temporal_self_attn
 from vista_tpu_torch.ops.linear import linear_residual
 from vista_tpu_torch.ops.norms import layer_norm
+from vista_tpu_torch.ops.remat import tagged
 from vista_tpu_torch.parallel.frames import frame_group, frame_offset
 from vista_tpu_torch.parallel.height import gather_keys, height_group, level_rows
 from vista_tpu_torch.parallel.mesh import frames_to_tokens, tokens_to_frames
@@ -112,12 +119,14 @@ class CrossAttention(nn.Module):
         return y + self._lora(f"{name}_adapter", x) if self.add_lora else y
 
     def self_attention(self, x: torch.Tensor, norm: nn.LayerNorm,
-                       site: Optional[str] = None,
-                       width: Optional[int] = None) -> torch.Tensor:
+                       site: Optional[str] = None, width: Optional[int] = None,
+                       tag: str = "attn1_out") -> torch.Tensor:
         """``x + to_out(attn(to_qkv(norm(x))))`` on ``(n, s, c)``. ``width``:
         the spatial blocks' frame width in tokens; under ``height_parallel``
         x is this rank's band of a frame's rows, and K and V are gathered
-        over the bands (the queries stay local)."""
+        over the bands (the queries stay local). ``tag``: the remat
+        ``"names"`` tag, on the path's own tensor as in the JAX package: the
+        attention's output without LoRA, the out-projection with it."""
         gather = width is not None and height_group() is not None
         keys = level_rows(width) * width if gather else x.shape[1]
         site = site or ("spatial-long" if keys >= LONG_SEQ else "spatial-short")
@@ -129,9 +138,10 @@ class CrossAttention(nn.Module):
                                    self.to_k.weight, self.to_v.weight, norm.eps, bwd_site=site)
         if gather:
             k, v = gather_keys(k, v, width)
-        o = attention_packed(q, k, v, self.heads, site=site)
+        o = attention_packed(q, k, v, self.heads, site=site,
+                             tag=None if self.add_lora else tag)
         if self.add_lora:
-            return x + self.to_out(o) + self._lora("out_adapter", o)
+            return x + tagged(tag, lambda: self.to_out(o) + self._lora("out_adapter", o))
         out = self.to_out[0]
         return linear_residual(o, out.weight, out.bias.float(), x, site="attn-out")
 
@@ -166,10 +176,10 @@ class FeedForward(nn.Module):
                                  nn.Linear(dim * mult, dim))
 
     def residual(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-        """``x + FF(norm(x))``."""
+        """``x + FF(norm(x))``, the remat tag ``ff_out``."""
         p_in, p_out = self.net[0].proj, self.net[2]
         return fused_geglu_ff(x, norm.weight, norm.bias, p_in.weight, p_in.bias,
-                              p_out.weight, p_out.bias, norm.eps)
+                              p_out.weight, p_out.bias, norm.eps, tag="ff_out")
 
 
 class TransformerBlock(nn.Module):
@@ -188,7 +198,7 @@ class TransformerBlock(nn.Module):
                 width: Optional[int] = None) -> torch.Tensor:
         """x ``(n, s, c)``, s tokens of frames ``width`` tokens wide."""
         x = self.attn1.self_attention(x, self.norm1, width=width)
-        x = x + self.attn2.cross(context)
+        x = x + tagged("attn2_out", lambda: self.attn2.cross(context))
         return self.ff.residual(x, self.norm3)
 
 
@@ -232,13 +242,14 @@ class TemporalTransformerBlock(nn.Module):
         x = self.ff_in.residual(x, self.norm_in)
         a = self.attn1
         if a.add_lora:
-            x = a.self_attention(x, self.norm1, site="temporal")
+            x = a.self_attention(x, self.norm1, site="temporal", tag="temporal_attn_out")
         else:
-            x = fused_temporal_self_attn(
+            x = tagged("temporal_attn_out", lambda: fused_temporal_self_attn(
                 x, self.norm1.weight, self.norm1.bias, a.to_q.weight, a.to_k.weight,
                 a.to_v.weight, a.to_out[0].weight, a.to_out[0].bias, self.heads,
-                self.norm1.eps)
-        y = self.attn2.cross(time_context).reshape(b, 1, 1, c)  # per video
+                self.norm1.eps))
+        y = tagged("attn2_out", lambda: self.attn2.cross(time_context))
+        y = y.reshape(b, 1, 1, c)  # per video
         x = (x.reshape(b, s, num_frames, c) + y).reshape(b * s, num_frames, c)
         return self.ff.residual(x, self.norm3)
 

@@ -13,10 +13,13 @@ mask, so the pinned context frames get their own embedding.
 ``add_lora`` / ``action_control`` add the rank-16 LoRA adapters and the
 action K/V adapters of every attention (``models/attention.py``); the
 cross-attention context is then ``context_dim + 19 * 128`` wide. ``remat``
-wraps every top-level block (VideoResBlock, SpatialVideoTransformer) in
+wraps the top-level blocks (VideoResBlock, SpatialVideoTransformer) in
 ``torch.utils.checkpoint`` when gradients are recorded: the backward
 recomputes each block's forward instead of storing its activations, as the
-JAX package's ``nn.remat`` does.
+JAX package's ``nn.remat`` does. ``remat_max_ds`` limits that to the blocks
+at downsample factors up to it (the deeper ones store their activations),
+and ``remat_policy`` says what the recompute takes from the forward
+(``ops/remat.py``). Neither changes the parameters' names.
 
 Under ``height_parallel`` (``parallel/height.py``, sampling) ``x`` is this
 rank's band of latent rows and the result its band of the output: every
@@ -31,17 +34,17 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
 
 from vista_tpu_torch.models.attention import SpatialVideoTransformer
 from vista_tpu_torch.models.blocks import Downsample, Upsample, VideoResBlock
 from vista_tpu_torch.models.layers import Conv2d, GroupNorm32, timestep_embedding, timestep_mlp
+from vista_tpu_torch.ops.remat import check_policy, checkpointed
 
 
 @dataclasses.dataclass(frozen=True)
 class VideoUNetConfig:
-    """The JAX config's fields and defaults, without its TPU-only ones
-    (``attn_backend``, ``remat_max_ds``, ``remat_policy``)."""
+    """The JAX config's fields and defaults, without its TPU-only
+    ``attn_backend``."""
 
     in_channels: int = 8
     out_channels: int = 4
@@ -60,7 +63,19 @@ class VideoUNetConfig:
     action_control: bool = False
     num_frames: int = 25
     dtype: str = "bfloat16"
-    remat: bool = False
+    remat: bool = False  # checkpoint each top-level block (training)
+    # Selective checkpointing, no effect unless remat: only the blocks at a
+    # downsample factor ds <= remat_max_ds are checkpointed (None: all), the
+    # deeper ones store their activations.
+    remat_max_ds: Optional[int] = None
+    # In the checkpointed blocks: None recomputes the whole block; "names"
+    # keeps the outputs tagged attn1_out, attn2_out, ff_out and
+    # temporal_attn_out (models/attention.py) and recomputes the rest;
+    # "dots" keeps the products without batch dimensions (ops/remat.py).
+    remat_policy: Optional[str] = None
+
+    def __post_init__(self):
+        check_policy(self.remat_policy)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -145,13 +160,17 @@ class VideoUNet(nn.Module):
             yield from layers
         yield self.out
 
-    def _run(self, layers, h, emb, context, num_frames):
-        remat = self.cfg.remat and torch.is_grad_enabled()
+    def _run(self, layers, h, emb, context, num_frames, ds):
+        """One entry of the block lists, whose blocks run at downsample
+        factor ``ds``."""
+        cfg = self.cfg
+        remat = cfg.remat and torch.is_grad_enabled() and (
+            cfg.remat_max_ds is None or ds <= cfg.remat_max_ds)
         for layer in layers:
             if isinstance(layer, (VideoResBlock, SpatialVideoTransformer)):
                 extra = emb if isinstance(layer, VideoResBlock) else context
                 if remat:
-                    h = checkpoint(layer, h, extra, num_frames, use_reentrant=False)
+                    h = checkpointed(layer, h, extra, num_frames, policy=cfg.remat_policy)
                 else:
                     h = layer(h, extra, num_frames)
             else:
@@ -183,12 +202,14 @@ class VideoUNet(nn.Module):
                 y = y.repeat_interleave(nf, dim=0)
             emb = emb + self.label_emb(y.to(dtype))
 
-        h, hs = x, []
+        h, hs, ds = x, [], 1
         for layers in self.input_blocks:
-            h = self._run(layers, h, emb, context, nf)
+            h = self._run(layers, h, emb, context, nf, ds)
+            ds *= 2 if isinstance(layers[-1], Downsample) else 1
             hs.append(h)
-        h = self._run(self.middle_block, h, emb, context, nf)
+        h = self._run(self.middle_block, h, emb, context, nf, ds)
         for layers in self.output_blocks:
             h = torch.cat([h, hs.pop()], dim=1).contiguous(memory_format=torch.channels_last)
-            h = self._run(layers, h, emb, context, nf)
+            h = self._run(layers, h, emb, context, nf, ds)  # an Upsample runs last
+            ds //= 2 if isinstance(layers[-1], Upsample) else 1
         return self.out(h).float()

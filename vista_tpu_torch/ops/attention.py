@@ -37,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from vista_tpu_torch.ops import _build
+from vista_tpu_torch.ops import _build, remat
 
 HEAD_DIM = 64  # the only head width K1 is built for (the UNet's)
 _LOG2E = 1.4426950408889634
@@ -402,8 +402,9 @@ def attention_bwd(q, k, v, o, lse, do, heads: int, valid_k: Optional[int] = None
 
 class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, heads, valid_k, site):
-        out, lse = attention_forward(q, k, v, heads, valid_k, site, want_lse=True)
+    def forward(ctx, q, k, v, heads, valid_k, site, tag):
+        out, lse = remat.reuse(tag, lambda: attention_forward(q, k, v, heads, valid_k, site,
+                                                              want_lse=True))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (heads, valid_k, site)
         return out
@@ -412,14 +413,16 @@ class _Attention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, out, lse, do.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      heads: int, valid_k: Optional[int] = None,
-                     site: str = "spatial") -> torch.Tensor:
+                     site: str = "spatial", tag: Optional[str] = None) -> torch.Tensor:
     """Non-causal attention; ``site`` names the caller in the launch counts.
-    Differentiable when an input requires grad."""
+    Differentiable when an input requires grad; ``tag``: a remat ``"names"``
+    site, whose recompute takes ``(o, lse)`` from the forward
+    (:func:`~vista_tpu_torch.ops.remat.reuse`)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _Attention.apply(q, k, v, heads, valid_k, site)
+        return _Attention.apply(q, k, v, heads, valid_k, site, tag)
     return attention_forward(q, k, v, heads, valid_k, site)

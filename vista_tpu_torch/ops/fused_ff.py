@@ -20,9 +20,11 @@ says; it reads W1 and W2 as stored.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from vista_tpu_torch.ops import _build
+from vista_tpu_torch.ops import _build, remat
 from vista_tpu_torch.ops.linear import (ALIGN_SLACK, BOX_BYTES, GEMM_TILE, TOKEN_BOX, GemmPlan,
                                         gelu_erf, linear_residual, ln_linear, seg_gemm,
                                         weight_bias_grads)
@@ -151,10 +153,10 @@ def ff_bwd(x, ln_w, ln_b, w1, b1, w2, dy, eps=1e-5, needs=(True,) * 7,
 
 class _FeedForward(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps, site):
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps, site, tag):
         ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2)
         ctx.args = (eps, site, b2.dtype)
-        return _forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, site)
+        return remat.reuse(tag, lambda: _forward(x, ln_w, ln_b, w1, b1, w2, b2, eps, site))
 
     @staticmethod
     def backward(ctx, dy):
@@ -163,16 +165,18 @@ class _FeedForward(torch.autograd.Function):
         grads = ff_bwd(x, ln_w, ln_b, w1, b1, w2, dy.contiguous(), eps,
                        ctx.needs_input_grad[:7], site)
         db2 = grads[6].to(b2_dtype) if grads[6] is not None else None
-        return (*grads[:6], db2, None, None)
+        return (*grads[:6], db2, None, None, None)
 
 
 def fused_geglu_ff(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                    w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                    b2: torch.Tensor, eps: float = 1e-5,
-                   site: str = "ff") -> torch.Tensor:
-    """w1 (8c, c), b1 (8c), w2 (c, 4c), b2 (c) in Linear layout; differentiable."""
+                   site: str = "ff", tag: Optional[str] = None) -> torch.Tensor:
+    """w1 (8c, c), b1 (8c), w2 (c, 4c), b2 (c) in Linear layout; differentiable.
+    ``tag``: a remat ``"names"`` site, whose recompute takes the output from
+    the forward (:func:`~vista_tpu_torch.ops.remat.reuse`)."""
     x = x.contiguous()
     params = (ln_w, ln_b, w1, b1, w2, b2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
-        return _FeedForward.apply(x, *params, eps, site)
+        return _FeedForward.apply(x, *params, eps, site, tag)
     return _forward(x, *params, eps, site)

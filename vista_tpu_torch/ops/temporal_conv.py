@@ -152,11 +152,7 @@ def gn_silu_conv3_plain(x, scale, shift, w, bias, num_frames, emb=None,
     b = bt // num_frames
     a = x.float() * scale.float()[:, None] + shift.float()[:, None]
     xn = F.silu(a).to(x.dtype).float().reshape(b, num_frames, s, cin)
-    w3 = w.float().reshape(cout, cin, 3)
-    y = torch.matmul(xn, w3[:, :, 1].t())
-    y[:, 1:] += torch.matmul(xn[:, :-1], w3[:, :, 0].t())
-    y[:, :-1] += torch.matmul(xn[:, 1:], w3[:, :, 2].t())
-    y = y.reshape(bt, s, cout) + bias.float()
+    y = _taps(xn, w.float().reshape(cout, cin, 3)).reshape(bt, s, cout) + bias.float()
     if emb is not None:
         y = y + emb.float()[:, None]
     if residual is not None:
@@ -247,17 +243,22 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     return out
 
 
+def _taps(xv, w3):
+    """``y[f] = xv[f] W1 + xv[f - 1] W0 + xv[f + 1] W2`` over ``(b, t, s, cin)``,
+    zero outside a video, added in that order. Out of place: a selective
+    checkpoint (``ops/remat.py``, ``"dots"``) keeps the products' outputs."""
+    y = torch.matmul(xv, w3[:, :, 1].t())
+    y = torch.cat([y[:, :1], y[:, 1:] + torch.matmul(xv[:, :-1], w3[:, :, 0].t())], dim=1)
+    return torch.cat([y[:, :-1] + torch.matmul(xv[:, 1:], w3[:, :, 2].t()), y[:, -1:]], dim=1)
+
+
 def conv3_plain(x, w, bias, num_frames):
     """``y[f] = sum_tap x[f + tap - 1] . W[tap] (+ bias)``, zero outside a
     video; fp32 math, x's dtype out."""
     bt, s, cin = x.shape
     cout = w.shape[0]
     xv = x.float().reshape(bt // num_frames, num_frames, s, cin)
-    w3 = w.float().reshape(cout, cin, 3)
-    y = torch.matmul(xv, w3[:, :, 1].t())
-    y[:, 1:] += torch.matmul(xv[:, :-1], w3[:, :, 0].t())
-    y[:, :-1] += torch.matmul(xv[:, 1:], w3[:, :, 2].t())
-    y = y.reshape(bt, s, cout)
+    y = _taps(xv, w.float().reshape(cout, cin, 3)).reshape(bt, s, cout)
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
