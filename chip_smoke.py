@@ -1,7 +1,7 @@
 """Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py            # every phase (needs one H100)
-    python3 chip_smoke.py --profile  # and a traced 576x1024 request
+    python3 chip_smoke.py --profile  # and traces: a request, the train steps, the arc
 
 Phases, each timed on its own line:
 
@@ -32,7 +32,9 @@ Phases, each timed on its own line:
    dynamics loss) at full width with seeded random weights and non-zero
    adapters: a small slice of the step on the card in bf16 against the CPU
    in fp32, three optimizer steps with the launch counts of every kernel,
-   and a traced step (device time by kernel group);
+   with ``--profile`` a traced step (device time by kernel group), and the
+   selective checkpointing modes under LoRA (as in phase1, below; one
+   timed optimizer step each);
 7. train_cli: the phase-2 stage-2 recipe (``configs/vista_phase2_stage2.yaml``:
    576x1024, 25 frames, batch 1, LoRA + action control, ``lora_only``, remat,
    dynamics loss, the recipe's 1000-step warm-up) through the train CLI's
@@ -49,12 +51,13 @@ Phases, each timed on its own line:
    bf16 against the CPU in fp32 (the loss, and every UNet gradient against
    its own size, beside the same error of bf16 on the CPU), four
    micro-steps (two optimizer steps) with the launch counts of every kernel
-   and checks of which tensors move after which call, a traced optimizer
-   step, and the selective-checkpointing modes (``remat_max_ds`` 2 and 1,
-   ``names``, ``dots``): each one's micro-step from full remat's state,
-   batch and draws bit-identical to full remat's (loss and every gradient),
-   its launches as predicted from the config, the memory its forward keeps,
-   its peak, and two optimizer steps of each in turns;
+   and checks of which tensors move after which call, with ``--profile``
+   a traced optimizer step, and the selective-checkpointing modes (``remat_max_ds`` 2 and 1,
+   ``names``, ``dots``, ``names`` with ``remat_max_ds`` 1): each one's
+   micro-step from full remat's state, batch and draws bit-identical to full
+   remat's (loss and every gradient), its launches as predicted from the
+   config, the memory its forward keeps, its peak, and two optimizer steps
+   of each but the last in turns;
 9. sampling_modes (after slice): the headline request (576x1024, 25 frames,
    triangle CFG 2.5) at 5 steps on one noise, batched, sequential and
    batched with churn (``s_churn`` 1, eps from a ``torch.Generator`` on the
@@ -75,7 +78,20 @@ Phases, each timed on its own line:
     then ``tools/torch_quality_bench.py`` in-process: ``--calibrate`` at
     576x1024 on 2 synthetic clips (FCD rising over the noise and blur
     grades, PSNR and SSIM falling) and one harness run (1 clip, 1 round of
-    5 steps).
+    5 steps);
+13. parallel: the CLIs under ``torch.distributed.run`` at world size 1
+    (sample in ``frames``, ``height`` and ``weights`` mode, the train CLI),
+    ``sp_attention`` at the ds1 shape bit-identical to ``attention_packed``
+    forward and backward, and the kernels at the local shapes of frame
+    splits and row bands;
+14. overfit (after phase1): two micro-steps of the arc's engine at its
+    shapes on the card against fp32 on the CPU (every training kernel held
+    to its plain version there); then ``tools/torch_overfit.py``'s arc at
+    the kernel widths in bf16 (32x32, 5 frames): 400 optimizer steps on two
+    clips, sampling from the EMA weights against the weights before step
+    1, the decode, the JAX test's margins, every training kernel's launches
+    and the optimizer's share of a step (with ``--profile`` three more steps
+    traced).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -1253,7 +1269,8 @@ def _device_profile(label, fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     groups, total, launches = {}, 0.0, 0
-    for evt in prof.key_averages():
+    averages = prof.key_averages()  # its cost grows with the events: once
+    for evt in averages:
         if evt.device_type != DeviceType.CUDA or evt.key == "Command Buffer Full":
             continue
         us = evt.self_device_time_total
@@ -1276,7 +1293,7 @@ def _device_profile(label, fn):
         log(f"    {'K: attention_bwd, all routes':18s} {attn_bwd / 1e3:10.1f} ms")
     OUT.mkdir(exist_ok=True)
     (OUT / f"profile_{label}.txt").write_text(
-        f"{CARD}\n" + prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
+        f"{CARD}\n" + averages.table(sort_by="self_cuda_time_total", row_limit=60))
     return dict(wall_s=wall, busy_s=total / 1e6, launches=launches,
                 groups_ms={g: us / 1e3 for g, us in groups.items()})
 
@@ -1692,7 +1709,7 @@ def train_reference(seed):
         raise SystemExit("the small train step disagrees with the CPU reference")
 
 
-def train_run(seed):
+def train_run(seed, profile=False):
     from vista_tpu_torch.engine.engine import VistaEngine
     from vista_tpu_torch.engine.training import Trainer, draw_train
     from vista_tpu_torch.ops import _build
@@ -1762,12 +1779,16 @@ def train_run(seed):
     del frozen, start
 
     prof = _device_profile("train_step", lambda: trainer(
-        batch, draw_train(engine, tcfg, batch, gen)))
+        batch, draw_train(engine, tcfg, batch, gen))) if profile else None
+    modes = remat_modes_run(engine, trainer, tcfg, batch, gen, sites, TRAIN_STEPS, (320, 576),
+                            "phase 2", tuple(REMAT_MODES), 1)
     OUT.mkdir(exist_ok=True)
     (OUT / "train.json").write_text(json.dumps(dict(
         card=CARD, steps=steps, s_per_step=s_step, peak_gib=peak, launches=sites,
-        profile=prof), indent=1))
-    return launches
+        profile=prof, remat_modes={name: {k: v for k, v in m.items() if k != "launches"}
+                                   for name, m in modes.items()}), indent=1))
+    return {"train": launches, **{f"train_{name}": m["launches"]
+                                  for name, m in modes.items() if name != "full"}}
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2107,38 +2128,50 @@ def grad_errors(g, g_ref):
 
 
 def phase1_reference(seed):
-    """Two micro-steps of the phase-1 step at a small size on the card in
+    """The phase-1 step at a small size (64x64, 5 frames; the recipe's
+    optimizer without its warm-up) through :func:`small_step_reference`."""
+    _, train = phase1_cfg()
+    train = dataclasses.replace(train, warmup_steps=0,
+                                loss=dataclasses.replace(train.loss, num_frames=5))
+    gen = torch.Generator().manual_seed(seed + 1)
+    batch = phase1_batch(64, 64, 5, gen, "cpu")
+    small_step_reference("small phase-1", small_cfg("phase1"), train, batch, gen, seed,
+                         "phase1_reference.json")
+
+
+def small_step_reference(label, cfg, train, batch, gen, seed, out_name):
+    """Two micro-steps of ``train`` on the fp32 engine of ``cfg`` at the
+    shapes of ``batch`` (on the CPU; draws from ``gen``), on the card in
     bf16 against the same weights, batch and draws on the CPU in fp32 (no
     TF32 there): the loss and every UNet gradient of each micro-step, each
     tensor against its own size (:func:`grad_errors`). The control is the
     same step in bf16 on the CPU through the plain versions: the error that
-    bf16 alone makes, with no kernel in the run."""
+    bf16 alone makes, with no kernel in the run. Returns the kernels, routes
+    and call sites the card's micro-steps launched."""
     from vista_tpu_torch.engine.engine import VistaEngine
     from vista_tpu_torch.engine.training import Trainer, draw_train
+    from vista_tpu_torch.ops import _build
 
-    _, train = phase1_cfg()
-    train = dataclasses.replace(train, warmup_steps=0,
-                                loss=dataclasses.replace(train.loss, num_frames=5))
-    cfg = small_cfg("phase1")
     cpu = VistaEngine(cfg, "cpu")
     init_engine(cpu, torch.Generator().manual_seed(seed))
     gpu = card_twin(cpu, cfg)
     control = VistaEngine(to_bf16(cfg), "cpu")
     for name in ("unet", "decoder", "encoder", "conditioner"):
         getattr(control, name).load_state_dict(getattr(cpu, name).state_dict())
-    gen = torch.Generator().manual_seed(seed + 1)
-    batch = phase1_batch(64, 64, 5, gen, "cpu")
     draws = [draw_train(cpu, train, batch, gen) for _ in range(2)]
     out = {}
     for name, engine in (("cpu", cpu), ("card", gpu), ("control", control)):
         dev = engine.device
         trainer = Trainer(engine, train)
         out[name] = []
+        _build.reset_counts()
         for d in draws:
             loss, _ = trainer.loss_and_grads({k: v.to(dev) for k, v in batch.items()},
                                              move_draws(d, dev))
             out[name].append((float(loss), {n: g.cpu() for n, g in trainer.grads().items()}))
             trainer.apply()
+        if name == "card":
+            launched = {**_build.LAUNCHES, **_build.SITES}
     ok, readings = True, []
     labels = dict(card="bf16 kernels on the card", control="bf16 plain on the CPU")
     for i, (loss_ref, g_ref) in enumerate(out["cpu"]):
@@ -2150,7 +2183,7 @@ def phase1_reference(seed):
             rel_loss = abs(loss - loss_ref) / abs(loss_ref)
             reading[name] = dict(rel_loss=rel_loss, worst=errs[worst], worst_tensor=worst,
                                  median=sorted(errs.values())[len(errs) // 2])
-            log(f"  small phase-1 micro-step {i}, {labels[name]} vs fp32 on the CPU: loss "
+            log(f"  {label} micro-step {i}, {labels[name]} vs fp32 on the CPU: loss "
                 f"rel {rel_loss:.3e}; per UNet tensor ({len(g)}), "
                 f"|diff|_2 / |cpu|_2 (floor {PHASE1_GRAD_FLOOR} of the largest): worst "
                 f"{errs[worst]:.3e} ({worst}), median {reading[name]['median']:.3e} "
@@ -2169,10 +2202,11 @@ def phase1_reference(seed):
         ok &= card["rel_loss"] <= TRAIN_TOL and card["worst"] <= PHASE1_GRAD_TOL
         ok &= min(swapped[q], swapped[k]) > PHASE1_GRAD_TOL
     OUT.mkdir(exist_ok=True)
-    (OUT / "phase1_reference.json").write_text(json.dumps(dict(card=CARD, readings=readings),
-                                                          indent=1))
+    (OUT / out_name).write_text(json.dumps(dict(card=CARD, readings=readings,
+                                                launches=launched), indent=1))
     if not ok:
-        raise SystemExit("the small phase-1 step disagrees with the CPU reference")
+        raise SystemExit(f"the {label} step disagrees with the CPU reference")
+    return launched
 
 
 _HASH_P = 2 ** 31 - 1  # a prime: every product below stays under 2^62
@@ -2194,7 +2228,7 @@ def checksums(tensors):
     return torch.stack(out).cpu()
 
 
-def phase1_run(seed):
+def phase1_run(seed, profile=False):
     from vista_tpu_torch.engine.engine import VistaEngine
     from vista_tpu_torch.engine.training import Trainer, draw_train
     from vista_tpu_torch.ops import _build
@@ -2327,8 +2361,10 @@ def phase1_run(seed):
     del frozen
     trainer.apply = apply
     prof = _device_profile("phase1_optimizer_step", lambda: [
-        trainer(batch, draw_train(engine, tcfg, batch, gen)) for _ in range(k)])
-    modes = remat_modes_run(engine, trainer, tcfg, batch, gen, sites)
+        trainer(batch, draw_train(engine, tcfg, batch, gen)) for _ in range(k)]) \
+        if profile else None
+    modes = remat_modes_run(engine, trainer, tcfg, batch, gen, sites, PHASE1_MICRO_STEPS,
+                            (576, 1024), "phase 1", PHASE1_TIMED_MODES, 2)
     OUT.mkdir(exist_ok=True)
     (OUT / "phase1.json").write_text(json.dumps(dict(
         card=CARD, micro_steps=steps, s_per_micro_step=s_micro, s_per_optimizer_step=s_opt,
@@ -2341,19 +2377,30 @@ def phase1_run(seed):
                                    for name, m in modes.items() if name != "full"}}
 
 
-# Selective checkpointing in the phase-1 step: each mode's micro-step from
-# the state, batch and draws of a full-remat one, and an optimizer step of
-# each. ``remat_max_ds: 1`` stores every ds2-ds8 block (see PERF.md).
+# Selective checkpointing: on the phase-1 engine and on the phase-2 one
+# (LoRA), each mode's micro-step from the state, batch and draws of a
+# full-remat one, and optimizer steps of the timed modes. ``remat_max_ds: 1``
+# stores every ds2-ds8 block (see PERF.md).
 REMAT_MODES = {"full": {}, "remat_max_ds_2": dict(remat_max_ds=2),
                "names": dict(remat_policy="names"), "dots": dict(remat_policy="dots"),
-               "remat_max_ds_1": dict(remat_max_ds=1)}
-# a SpatialVideoTransformer's forward launches by site (the spatial K1's site
-# is spatial-long from 2048 keys); "names" tags: K1's (o, lse), the three
+               "remat_max_ds_1": dict(remat_max_ds=1),
+               "names_remat_max_ds_1": dict(remat_policy="names", remat_max_ds=1)}
+# phase 1 times two optimizer steps of these modes in turns; the last mode
+# is compared only
+PHASE1_TIMED_MODES = ("full", "remat_max_ds_2", "names", "dots", "remat_max_ds_1")
+# a SpatialVideoTransformer's forward launches by site (a spatial site is
+# spatial-long from 2048 keys); "names" tags: K1's (o, lse), the three
 # feed-forwards and the temporal self-attention (K2 + K1 + K3)
 REMAT_ATTN_SITES = {"ln_linear/qkv": (1, False), "attention/spatial": (1, True),
                     "linear_residual/attn-out": (1, False), "ln_linear/ff": (3, True),
                     "linear_residual/ff": (3, True), "ln_linear/temporal-qkv": (1, True),
                     "attention/temporal": (1, True), "linear_residual/temporal-out": (1, True)}
+# with LoRA the self-attentions take the layer_norm kernel and K1 and leave
+# the products to PyTorch; "names" keeps the LoRA out-projection (no
+# kernel), so only the feed-forwards' K2 and K3 run once
+REMAT_LORA_ATTN_SITES = {"layer_norm/spatial": (1, False), "attention/spatial": (1, False),
+                         "ln_linear/ff": (3, True), "linear_residual/ff": (3, True),
+                         "layer_norm/temporal": (1, False), "attention/temporal": (1, False)}
 # a VideoResBlock's: K4 twice, each a pre-pass and a conv; no tag
 REMAT_RES_SITES = {"gn_silu_conv3/emb": (1, False), "gn_silu_conv3/res": (1, False),
                    "gn_silu/emb": (1, False), "gn_silu/res": (1, False)}
@@ -2380,34 +2427,43 @@ def predicted_remat_launches(cfg, full, mode, h, w):
     """One micro-step's launches under ``mode`` from full remat's ``full``
     (kernel and kernel/site counts): full remat runs each block's forward
     twice; a block deeper than ``remat_max_ds`` runs it once, and under
-    ``names`` a checkpointed block's tagged sites run once."""
+    ``names`` a checkpointed block's tagged sites run once. The sites are
+    the LoRA path's when ``cfg.add_lora``; a spatial K1 takes the short
+    route at most ``FWD_SMALL_KEYS`` keys (the mid block at 320x576)."""
+    from vista_tpu_torch.models.attention import LONG_SEQ
+    from vista_tpu_torch.ops.attention import FWD_SMALL_KEYS
+
+    attn_sites = REMAT_LORA_ATTN_SITES if cfg.add_lora else REMAT_ATTN_SITES
     out = collections.Counter(full)
     for kind, ds in unet_blocks(cfg):
         deep = mode.get("remat_max_ds") is not None and ds > mode["remat_max_ds"]
         keys = ((h // 8 // ds) * (w // 8 // ds))
-        for site, (n, tag) in (REMAT_ATTN_SITES if kind == "attn" else REMAT_RES_SITES).items():
+        for site, (n, tag) in (attn_sites if kind == "attn" else REMAT_RES_SITES).items():
             if not (deep or (tag and mode.get("remat_policy") == "names")):
                 continue
-            if site == "attention/spatial":
-                site += "-long" if keys >= 2048 else "-short"
+            if site.endswith("/spatial"):
+                site += "-long" if keys >= LONG_SEQ else "-short"
             kernel = site.split("/")[0]
-            route = ([f"attention:{'short' if site.endswith('temporal') else 'wgmma'}"]
-                     if kernel == "attention" else [])
+            short = site.endswith("temporal") or keys <= FWD_SMALL_KEYS
+            route = [f"attention:{'short' if short else 'wgmma'}"] if kernel == "attention" else []
             for key in (site, kernel, *route):
                 out[key] -= n
     return {k: v for k, v in out.items() if v}
 
 
-def remat_modes_run(engine, trainer, tcfg, batch, gen, main_sites):
-    """Each of :data:`REMAT_MODES` on the phase-1 engine. First one
-    micro-step (``Trainer.loss_and_grads``, no update) of each from the same
-    state, batch and draws: its loss and every gradient must be bit-identical
-    to full remat's, its launches must equal the prediction (full remat's: a
-    quarter of ``main_sites``, the phase's four micro-steps); its peak memory
-    is the forward and backward's, and what the UNet's forward kept for the
-    backward is the memory held after it less before it. Then two optimizer steps
-    (``accum_steps`` micro-steps each) of every mode, in turns (the modes in
-    order, then in reverse), timed, with the peak over them."""
+def remat_modes_run(engine, trainer, tcfg, batch, gen, main_sites, main_steps, size, label,
+                    timed, rounds):
+    """Each of :data:`REMAT_MODES` on a training engine (``label``: the
+    path, in the log). First one micro-step (``Trainer.loss_and_grads``, no
+    update) of each from the same state, batch and draws: its loss and
+    every gradient must be bit-identical to full remat's, its launches must
+    equal the prediction at frames of ``size`` (full remat's: ``main_sites``
+    of the path's ``main_steps`` micro-steps, per micro-step); its peak
+    memory is the forward and backward's, and what the UNet's forward kept
+    for the backward is the memory held after it less before it. Then
+    ``rounds`` optimizer steps (``accum_steps`` micro-steps each) of every
+    mode in ``timed``, in turns (the modes in order, then in reverse, ...),
+    timed, with the peak over them."""
     from vista_tpu_torch.engine.training import draw_train
     from vista_tpu_torch.ops import _build
 
@@ -2425,7 +2481,7 @@ def remat_modes_run(engine, trainer, tcfg, batch, gen, main_sites):
             held.clear()
             loss, _ = trainer.loss_and_grads(batch, draws)
             if len(held) != 2:
-                raise SystemExit(f"phase 1 remat modes: {len(held) // 2} UNet calls a micro-step")
+                raise SystemExit(f"{label} remat modes: {len(held) // 2} UNet calls a micro-step")
             kept = (held[1] - held[0]) / 2**30
             grads = {n: p.grad for n, p in trainer.params.items() if p.grad is not None}
             got = (float(loss), list(grads), checksums(list(grads.values())))
@@ -2434,26 +2490,28 @@ def remat_modes_run(engine, trainer, tcfg, batch, gen, main_sites):
             launches = {**_build.LAUNCHES, **_build.SITES}
             ref = ref or got
             identical = got[0] == ref[0] and got[1] == ref[1] and torch.equal(got[2], ref[2])
-            want = predicted_remat_launches(base, out["full"]["launches"], mode, 576, 1024) \
-                if out else {**_build.LAUNCHES, **{k: v / PHASE1_MICRO_STEPS
+            want = predicted_remat_launches(base, out["full"]["launches"], mode, *size) \
+                if out else {**_build.LAUNCHES, **{k: v / main_steps
                                                    for k, v in main_sites.items()}}
             wrong = {k: (launches.get(k, 0), want.get(k, 0)) for k in set(launches) | set(want)
                      if launches.get(k, 0) != want.get(k, 0)}
             out[name] = dict(mode=mode, loss=got[0], identical=identical,
                              peak_gib_micro_step=peak, unet_kept_gib=kept, launches=launches,
                              micro_s=[])
-            log(f"  remat {name} {mode}: loss {got[0]!r} and {len(got[1])} gradients "
+            log(f"  {label} remat {name} {mode}: loss {got[0]!r} and {len(got[1])} gradients "
                 f"{'bit-identical to' if identical else 'DIFFER from'} full remat's; peak "
-                f"{peak:.2f} GiB, the UNet's forward kept {kept:.2f} GiB; K1 {launches.get('attention', 0)} (wgmma "
-                f"{launches.get('attention:wgmma', 0)}, short "
-                f"{launches.get('attention:short', 0)}), K2 {launches.get('ln_linear', 0)}, "
-                f"K3 {launches.get('linear_residual', 0)}, K4 {launches.get('gn_silu_conv3', 0)}"
-                f" a micro-step; {'as predicted' if not wrong else f'NOT as predicted: {wrong}'}")
+                f"{peak:.2f} GiB, the UNet's forward kept {kept:.2f} GiB; K1 "
+                f"{launches.get('attention', 0)} (wgmma {launches.get('attention:wgmma', 0)}, "
+                f"short {launches.get('attention:short', 0)}), K2 "
+                f"{launches.get('ln_linear', 0)}, K3 {launches.get('linear_residual', 0)}, K4 "
+                f"{launches.get('gn_silu_conv3', 0)}, layer_norm "
+                f"{launches.get('layer_norm', 0)} a micro-step; "
+                f"{'as predicted' if not wrong else f'NOT as predicted: {wrong}'}")
             if not identical:
                 faults.append(f"{name}: the loss or a gradient differs from full remat's")
             if wrong:
                 faults.append(f"{name}: launches (got, predicted) {wrong}")
-        for name in [*REMAT_MODES, *reversed(REMAT_MODES)]:
+        for name in [m for r in range(rounds) for m in (timed if r % 2 == 0 else timed[::-1])]:
             unet.cfg = dataclasses.replace(base, **REMAT_MODES[name])
             torch.cuda.reset_peak_memory_stats()
             for _ in range(tcfg.accum_steps):
@@ -2470,16 +2528,121 @@ def remat_modes_run(engine, trainer, tcfg, batch, gen, main_sites):
         for h in hooks:
             h.remove()
     k = tcfg.accum_steps
-    for name, m in out.items():
+    for name in timed:
+        m = out[name]
         opt = [sum(m["micro_s"][i:i + k]) for i in range(0, len(m["micro_s"]), k)]
         m.update(s_per_micro_step=sum(m["micro_s"]) / len(m["micro_s"]),
                  s_per_optimizer_step=opt)
-        log(f"  remat {name}: {m['s_per_micro_step']:.3f} s per micro-step, optimizer steps "
-            f"{', '.join(f'{t:.3f}' for t in opt)} s, peak {m['peak_gib']:.2f} GiB")
+        log(f"  {label} remat {name}: {m['s_per_micro_step']:.3f} s per micro-step, optimizer "
+            f"steps {', '.join(f'{t:.3f}' for t in opt)} s, peak {m['peak_gib']:.2f} GiB")
     log(f"  card {CARD}")
     if faults:
-        raise SystemExit("phase 1 remat modes: " + "; ".join(faults))
+        raise SystemExit(f"{label} remat modes: " + "; ".join(faults))
     return out
+
+
+# ---------------------------------------------------------------- phase 14
+
+def load_tool(name):
+    """``tools/<name>.py`` as a module, to run in-process."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent / "tools" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module  # a dataclass of the module looks it up
+    spec.loader.exec_module(module)
+    return module
+
+
+def overfit_reference(arc, seed):
+    """The arc's own engine config (``tools/torch_overfit.py``'s kernel
+    widths) and its batch of both clips, 32 x 32 and 5 frames, through
+    :func:`small_step_reference`: every training kernel at the arc's shapes
+    held to its plain version. The arc's optimizer: its warm-up scales the
+    update between the two micro-steps by 1e-6, so both compare the same
+    weights (at the full lr 2e-3, Adam's first step moves every weight by
+    about the rate in the direction of its gradient's sign, which bf16
+    alone flips where the gradient is small)."""
+    cfg = arc.engine_config(False, fp32=True)
+    clips = torch.from_numpy(arc.make_clips(arc.SIDE, arc.SIDE, cfg.num_frames))
+    train = arc.train_config(cfg.num_frames)
+    return small_step_reference("overfit arc's", cfg, train, arc.train_batch(clips),
+                                torch.Generator().manual_seed(seed + 1), seed,
+                                "overfit_reference.json")
+
+
+def overfit_run(seed, profile=False):
+    """``tools/torch_overfit.py``'s arc in-process on the card: the JAX
+    test's optimizer, sampler and margins (the loss's at fixed draws) at the
+    kernel widths (the phase-1 slice's UNet, ``small_cfg("phase1")``, in
+    bf16 with remat) on the JAX test's 32 x 32 clips: 400 optimizer
+    steps on every UNet weight (the JAX test's 250 train its tiny engine;
+    see the tool), then sampling from the EMA weights and from
+    the weights before step 1, and the decode. First the arc's kernels at
+    its shapes against their plain versions (:func:`overfit_reference`);
+    with ``profile`` last three more steps of a new trainer, traced (the
+    card's busy share; the trace of 21k launches a step adds about 45 s).
+    Fails on a missed margin or check, when a training kernel never
+    launched, and when the arc launched a kernel, route or site that the
+    reference did not hold."""
+    from vista_tpu_torch.ops import _build
+
+    gc.collect()  # the phase-1 engine and trainer, before the peak is taken
+    torch.cuda.empty_cache()
+    arc = load_tool("torch_overfit")
+    held = phase("overfit-reference", overfit_reference, arc, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    engine = arc.build_engine(False, "cuda", seed)
+    n_unet = sum(p.numel() for p in engine.unet.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    out = arc.run_arc(engine, arc.KERNEL_STEPS, seed)
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    launches, sites = dict(_build.LAUNCHES), dict(_build.SITES)
+    log(f"  overfit arc: VideoUNet {n_unet / 1e6:.2f} M params (model_channels 64, head dim 64, "
+        f"5 frames, remat), bf16, {arc.SIDE}x{arc.SIDE}, 2 clips, {out['steps']} steps "
+        f"(lr 2e-3, warm-up 5, EMA 0.9), all UNet weights trained")
+    log(f"  loss median at {arc.EVAL_DRAWS} fixed draws, before step 1 "
+        f"{out['eval_before_median']:.5f} -> the EMA weights after step {out['steps']} "
+        f"{out['eval_after_ema_median']:.5f}: ratio {out['eval_ratio']:.4f} (limit "
+        f"{arc.LOSS_RATIO}; the online weights {out['eval_after_median']:.5f}); "
+        f"the JAX test's statistic, the per-step loss median of the first {arc.WINDOW} steps "
+        f"{out['loss_first_median']:.5f} -> the last {arc.WINDOW} {out['loss_last_median']:.5f}: "
+        f"ratio {out['loss_ratio']:.4f} (not held: it reads the sigma draws)")
+    log(f"  latent MSE from the EMA weights {out['trained_mse']:.5f} "
+        f"{[round(x, 5) for x in out['trained_mses']]} vs random init {out['baseline_mse']:.5f} "
+        f"{[round(x, 5) for x in out['baseline_mses']]}: ratio {out['mse_ratio']:.4f} (limit "
+        f"{arc.MSE_RATIO})")
+    log(f"  {out['s_per_step']:.4f} s a training step (mean of steps 11-{out['steps']}; "
+        f"{out['train_s']:.2f} s for all), {out['apply_s_per_step']:.4f} s of it the optimizer "
+        f"update (Trainer.apply), sampling {out['sample_s']:.3f} s and decode "
+        f"{out['decode_s']:.3f} s (the EMA run: 2 clips x 10 steps, triangle CFG 2.0), peak "
+        f"{peak:.2f} GiB over the {before / 2**30:.2f} GiB held before; card {CARD}")
+    log(f"  launches over the arc: {json.dumps(sites, sort_keys=True)}")
+    missing = missing_launches(PHASE1_KERNELS + ATTENTION_ROUTES + ATTENTION_BWD_ROUTES, [])
+    unheld = sorted((set(launches) | set(sites)) - set(held))
+    faults = out["faults"] + ([f"kernels never launched: {missing}"] if missing else []) + (
+        [f"launched in the arc but not held at its shapes: {unheld}"] if unheld else [])
+    prof = None
+    if profile:  # where a step's time goes: three more steps of a new trainer
+        t = engine.cfg.num_frames
+        clips = torch.from_numpy(arc.make_clips(arc.SIDE, arc.SIDE, t)).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+        prof = _device_profile("overfit_steps", lambda: arc.overfit(
+            engine, arc.train_config(t), clips, 3, gen))
+    OUT.mkdir(exist_ok=True)
+    (OUT / "overfit.json").write_text(json.dumps(dict(
+        card=CARD, **out, peak_gib=peak, launches=sites, profile=prof), indent=1))
+    del engine, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if faults:
+        raise SystemExit("overfit: " + "; ".join(faults))
+    return launches
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2874,15 +3037,10 @@ def quality_run(seed):
     ViT-H tower: ``--calibrate`` at 576x1024 on 2 synthetic clips (it exits
     non-zero unless FCD rises over the noise and blur grades while PSNR
     falls), then one harness run (1 clip, 1 round, 5 steps)."""
-    import importlib.util
-
     from vista_tpu_torch.ops import _build
 
     text = phase("quality-text", text_tower_check, seed)
-    spec = importlib.util.spec_from_file_location(
-        "torch_quality_bench", Path(__file__).resolve().parent / "tools" / "torch_quality_bench.py")
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
+    bench = load_tool("torch_quality_bench")
     OUT.mkdir(exist_ok=True)
     t0 = time.perf_counter()
     cal = bench.main(["--calibrate", "--n-clips", "2", "--out", str(OUT / "quality_cal.json")])
@@ -2985,7 +3143,39 @@ def parallel_sample_worker(seed):
         runs[mode]["bit_identical"] = bool(torch.equal(latents[mode], ref))
         runs[mode]["max_abs_diff"] = float((latents[mode] - ref).abs().max())
     runs["latents_max"] = float(ref.abs().max())
+    runs["sp_attention"] = sp_attention_check(seed)
     return runs
+
+
+def sp_attention_check(seed):
+    """``sp_attention`` over the one-rank group at the ds1 shape of the
+    576x1024 sampling batch's spatial attention ``(2, 9216, 5x64)`` bf16,
+    forward and backward, against ``attention_packed`` on the same tensors
+    (a gather of one rank is the identity, so the bits must agree); its K1
+    and attention_bwd launches."""
+    from vista_tpu_torch.ops import _build
+    from vista_tpu_torch.ops.attention import attention_packed
+    from vista_tpu_torch.parallel.sp_attention import sp_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    q, k, v, do = (torch.randn(2, 9216, 320, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    runs = {}
+    for name in ("attention_packed", "sp_attention"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        o = (sp_attention(*leaves, 5, 9216) if name == "sp_attention"
+             else attention_packed(*leaves, 5))
+        o.backward(do)
+        torch.cuda.synchronize()
+        runs[name] = dict(seconds=time.perf_counter() - t0, launches=dict(_build.LAUNCHES),
+                          outputs=[o.detach(), *(t.grad for t in leaves)])
+    ref, got = runs["attention_packed"]["outputs"], runs["sp_attention"].pop("outputs")
+    runs.pop("attention_packed")
+    runs["sp_attention"]["bit_identical"] = [bool(torch.equal(a, b)) for a, b in zip(got, ref)]
+    return runs["sp_attention"]
 
 
 def train_summary(runner, seconds, stages):
@@ -3241,6 +3431,15 @@ def parallel_run(seed):
     if not sample["weights"]["bit_identical"]:
         faults.append("weights mode at one rank gathers the same weights: its latents must be "
                       "bit-identical to the round without a mesh")
+    sp = sample["sp_attention"]
+    log(f"  sp_attention (torchrun, NCCL, world size 1) at ds1 (2, 9216, 5x64) bf16, forward "
+        f"and backward: o, dq, dk, dv {sp['bit_identical']} bit-identical to attention_packed; "
+        f"{sp['seconds']:.3f} s; launches {json.dumps(sp['launches'], sort_keys=True)}")
+    if not all(sp["bit_identical"]):
+        faults.append(f"sp_attention at one rank differs from attention_packed: "
+                      f"{sp['bit_identical']} (o, dq, dk, dv)")
+    if [sp["launches"].get(k, 0) for k in ("attention:wgmma", "attention_bwd:wgmma")] != [1, 1]:
+        faults.append(f"sp_attention launched {sp['launches']}, not K1 and attention_bwd once")
 
     train = torchrun("train", seed)
     ref = parallel_train()
@@ -3276,7 +3475,8 @@ def parallel_run(seed):
         losses_identical=same_losses), indent=1))
     if faults:
         raise SystemExit("parallel: " + "; ".join(faults))
-    return {"parallel_sample_frames": sample["frames"]["launches"],
+    return {"parallel_sp_attention": sp["launches"],
+            "parallel_sample_frames": sample["frames"]["launches"],
             "parallel_sample_height": sample["height"]["launches"],
             "parallel_sample_weights": sample["weights"]["launches"],
             "parallel_train": train["launches"]}
@@ -3286,7 +3486,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one 576x1024 request (2 steps) with torch.profiler")
+                    help="also trace with torch.profiler one 576x1024 request (2 steps), "
+                    "a phase-2 step, a phase-1 optimizer step and three steps of the "
+                    "overfit arc (each trace adds up to a minute)")
     ap.add_argument("--parallel-worker", choices=sorted(PARALLEL_WORKERS),
                     help=argparse.SUPPRESS)  # the parallel phase's torchrun worker
     args = ap.parse_args()
@@ -3310,19 +3512,21 @@ def main():
     sample = phase("slice", slice_run, args.seed, args.profile)
     modes = phase("sampling_modes", sampling_modes_run, args.seed)
     rollout = phase("rollout", rollout_run, args.seed)
-    train = phase("train", train_run, args.seed)
+    train = phase("train", train_run, args.seed, args.profile)
     gc.collect()  # the phase-2 engine and trainer, before the next ones
     torch.cuda.empty_cache()
     train_cli = phase("train_cli", train_cli_run, args.seed, convert_run)
-    phase1 = phase("phase1", phase1_run, args.seed)
+    phase1 = phase("phase1", phase1_run, args.seed, args.profile)
+    overfit = phase("overfit", overfit_run, args.seed, args.profile)
     parallel = phase("parallel", parallel_run, args.seed)
     phase("vae_train", vae_train_run, args.seed)
     quality = phase("quality", quality_run, args.seed)
 
     kernels = []
     paths = {"sample": sample, "sampling_modes": modes, "rollout": rollout["rollout"],
-             "reward": rollout["reward"], "train": train, "train_cli": train_cli["train_cli"],
-             "convert": train_cli["convert"], **phase1, **parallel, "quality": quality}
+             "reward": rollout["reward"], **train, "train_cli": train_cli["train_cli"],
+             "convert": train_cli["convert"], **phase1, "overfit": overfit, **parallel,
+             "quality": quality}
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         timed = mine[0]  # the first (largest) main-path shape of the kernel

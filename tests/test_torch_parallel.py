@@ -19,7 +19,13 @@
   rows: bands 4 / 5) and at empty bands: the UNet's 3x3 conv at stride 1
   and 2, its 1x1 conv, ``Upsample`` (``F.conv2d`` after the interpolation),
   the band-summed ``GroupNorm32`` (``F.group_norm``), and band-local queries
-  against K and V gathered over the bands (``attention_plain``).
+  against K and V gathered over the bands (``attention_plain``);
+- on the same 2 ranks, ``sp_attention`` (b 2, s 256, 4 heads of 16, fp32):
+  the ranks' outputs against ``vista_tpu.parallel.sp_attention`` jitted on
+  conftest's 8-device mesh at the JAX test's 2e-5, their dq, dk and dv
+  against ``jax.grad`` of ``dot_product_attention`` over the whole
+  sequence to 1e-5 of each one's largest magnitude, and a sequence of 255
+  tokens (128 and 127) raising on both ranks.
 """
 
 import dataclasses
@@ -31,13 +37,15 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests.torch_parallel_ranks import collectives, mesh_outcome
+from tests.torch_parallel_ranks import SP_SHAPE, collectives, mesh_outcome, sp_inputs
 from tests.torch_ranks import start_ranks
 from tests.torch_threads import one_thread  # noqa: F401
 from vista_tpu.models.unet import VideoUNet as JVideoUNet
+from vista_tpu.ops.attention import dot_product_attention
 from vista_tpu.models.unet import VideoUNetConfig as JVideoUNetConfig
 from vista_tpu.parallel import fsdp_param_specs
 from vista_tpu.parallel import make_mesh as jmake_mesh
+from vista_tpu.parallel.sp_attention import sp_attention as jsp_attention
 from vista_tpu.utils import torch_import as ti
 from vista_tpu_torch.models.unet import VideoUNet, VideoUNetConfig
 from vista_tpu_torch.parallel.mesh import fsdp_shard_dim
@@ -126,3 +134,32 @@ def test_height_band_ops_match_the_whole_frame(two_ranks, case):
     for out in two_ranks:
         assert sorted(out["height"]) == sorted(HEIGHT_CASES)
         assert out["height"][case] <= 1e-6, out["height"]
+
+
+def _sp_gathered(two_ranks, name):
+    """The ranks' blocks of ``name`` along the sequence, ``SP_SHAPE``."""
+    return np.concatenate([out["sp_attention"][name] for out in two_ranks], 1).reshape(SP_SHAPE)
+
+
+def test_sp_attention_forward_matches_jax(two_ranks):
+    q, k, v, _ = (jnp.asarray(a) for a in sp_inputs())
+    mesh = jmake_mesh({"sp": 8})
+    ref = jax.jit(lambda q, k, v: jsp_attention(q, k, v, mesh, axis="sp"))(q, k, v)
+    np.testing.assert_allclose(_sp_gathered(two_ranks, "o"), np.asarray(ref), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_sp_attention_grads_match_jax(two_ranks):
+    q, k, v, do = (jnp.asarray(a) for a in sp_inputs())
+    grads = jax.grad(lambda q, k, v: jnp.sum(dot_product_attention(q, k, v) * do),
+                     argnums=(0, 1, 2))(q, k, v)
+    for name, ref in zip(("dq", "dk", "dv"), grads):
+        ref = np.asarray(ref)
+        err = np.abs(_sp_gathered(two_ranks, name) - ref).max() / np.abs(ref).max()
+        assert err <= 1e-5, (name, err)
+
+
+def test_sp_attention_uneven_sequence_raises(two_ranks):
+    for out in two_ranks:
+        assert "a sequence of 255 tokens does not split evenly over 2 ranks" in \
+            (out["sp_attention"]["uneven"] or ""), out["sp_attention"]["uneven"]

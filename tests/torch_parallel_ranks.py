@@ -71,6 +71,43 @@ def collectives(rank, mesh_cases):
     got = gn_affine(tokens.reshape(b * t, mine, c).contiguous(), gamma, beta, t, 1e-5, group)
     out["gn_rel"] = [float((a - r).abs().max() / r.abs().max()) for a, r in zip(got, ref)]
     out["height"] = height_primitives(group)
+    out["sp_attention"] = sp_attention_case(rank, group)
+    return out
+
+
+SP_SHAPE = (2, 256, 4, 16)  # b, s, heads, head dim
+
+
+def sp_inputs():
+    """q, k, v and the output's cotangent, ``SP_SHAPE`` fp32 arrays."""
+    rng = np.random.RandomState(0)
+    return [rng.randn(*SP_SHAPE).astype(np.float32) for _ in range(4)]
+
+
+def sp_attention_case(rank, group):
+    """``sp_attention`` on this rank's block of the sequence of
+    :func:`sp_inputs` (packed ``(b, s / n, heads * d)``): its output and the
+    gradients of ``sum(out * cotangent)`` for its q, k and v; and the error
+    a sequence that does not split evenly (128 and 127 tokens) raises."""
+    from vista_tpu_torch.parallel.sp_attention import sp_attention
+
+    b, s, h, d = SP_SHAPE
+    n = dist.get_world_size(group)
+    per = s // n
+    q, k, v, do = (torch.from_numpy(a.reshape(b, s, h * d)[:, rank * per:(rank + 1) * per])
+                   .contiguous() for a in sp_inputs())
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    o = sp_attention(q, k, v, h, s, group)
+    (o * do).sum().backward()
+    out = {name: t.detach().numpy() for name, t in
+           (("o", o), ("dq", q.grad), ("dk", k.grad), ("dv", v.grad))}
+    uneven = torch.zeros(b, per - rank, h * d)
+    try:
+        sp_attention(uneven, uneven, uneven, h, s - 1, group)
+        out["uneven"] = None
+    except ValueError as e:
+        out["uneven"] = str(e)
     return out
 
 

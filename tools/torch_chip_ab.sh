@@ -37,7 +37,7 @@ if [ "$MODE" = train ] || [ "$MODE" = phase1 ]; then
     [ $((i % 2)) = 0 ] && side=change dir=$CHANGE
     log="$OUT/run${i}_${side}.txt"
     (cd "$dir" && timeout -k 10 300 python3 -c \
-       "import chip_smoke as cs; cs.card_check(); cs.build(); cs.$run(0)" > "$log" 2>&1
+       "import chip_smoke as cs; cs.card_check(); cs.build(); cs.$run(0, True)" > "$log" 2>&1
      echo "rc=$?" >> "$log")
     echo "== run $i $side"
     grep -E "$lines" "$log"
