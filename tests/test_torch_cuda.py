@@ -712,3 +712,132 @@ def test_cuda_tensors_never_take_the_plain_path(rnd):
     q = rnd(1, 10, 64).float()
     with pytest.raises(TypeError):
         attention_packed(q, q, q, 1)
+
+
+
+def _small_engine(train: bool):
+    """An engine at widths the kernels take (head 64, c % 64 == 0), 5
+    frames, bf16, on the card; with ``train``, ``configs/vista_phase1.yaml``'s
+    trainer (accum 2, ``slow_spatial``, the dynamics loss, ucg dropout) and
+    remat."""
+    import dataclasses
+    from pathlib import Path
+
+    from vista_tpu_torch.config import load_config
+    from vista_tpu_torch.engine.engine import EngineConfig, VistaEngine
+    from vista_tpu_torch.engine.training import Trainer
+    from vista_tpu_torch.runner import ExperimentConfig
+
+    exp = load_config(ExperimentConfig, [str(Path(__file__).resolve().parent.parent / "configs"
+                                             / "vista_phase1.yaml")])
+    base = EngineConfig().tiny()
+    unet = dataclasses.replace(base.unet, model_channels=64, num_head_channels=64,
+                               context_dim=64, adm_in_channels=48, num_frames=5,
+                               dtype="bfloat16", remat=train)
+    cond = dataclasses.replace(
+        base.conditioner, vector_outdim=16,
+        ucg_rate=exp.engine.conditioner.ucg_rate if train else 0.0,
+        clip=dataclasses.replace(base.conditioner.clip, output_dim=64, dtype="bfloat16"),
+        vae=dataclasses.replace(base.conditioner.vae, ch=32, dtype="bfloat16"))
+    cfg = dataclasses.replace(base, unet=unet, num_frames=5, conditioner=cond,
+                              vae=dataclasses.replace(base.vae, ch=32, dtype="bfloat16"))
+    torch.manual_seed(0)
+    engine = VistaEngine(cfg, "cuda")
+    if not train:
+        return engine
+    tcfg = dataclasses.replace(exp.train, warmup_steps=0,
+                               loss=dataclasses.replace(exp.train.loss, num_frames=5))
+    return engine, Trainer(engine, tcfg)
+
+
+def _syncs(fn):
+    """Runs ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``; returns
+    each synchronising call's Python stack (its last frames)."""
+    import traceback
+    import warnings
+
+    found = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            found.append("".join(traceback.format_stack(limit=5)[:-1]))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return found
+
+
+def _host_syncs(fn):
+    """The ``host_sync`` spans ``fn`` stores under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vista_tpu_torch.utils import profiling
+
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        fn()
+    n = sum(1 for s in profiling.spans() if s.name == "host_sync")
+    profiling.clear()
+    return n
+
+
+def test_a_phase1_step_syncs_only_through_host_sync(rnd):
+    """One optimizer step of the phase-1 trainer under the sync debug mode
+    warns once per ``host_sync`` span the same step stores under the
+    profiler (per micro-step the gradient norm, the loss and its metrics,
+    plus the accumulated norm): no sync of the program escapes the counter."""
+    from vista_tpu_torch.engine.training import draw_train
+
+    engine, trainer = _small_engine(train=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    metrics = []
+
+    def step():
+        inputs = []
+        for _ in range(trainer.cfg.accum_steps):
+            batch = {"frames": torch.rand(1, 5, 3, 64, 64, generator=gen, device="cuda") * 2 - 1,
+                     "fps_id": torch.full((1,), 9.0, device="cuda"),
+                     "motion_bucket_id": torch.full((1,), 127.0, device="cuda"),
+                     "cond_aug": torch.full((1,), 0.02, device="cuda")}
+            inputs.append((batch, draw_train(engine, trainer.cfg, batch, gen)))
+        return lambda: metrics.extend(trainer(batch, draws) for batch, draws in inputs)
+
+    step()()  # warm-up: every shape, every constant cached on the card
+    syncs = _syncs(step())
+    counted = _host_syncs(step())
+    # a micro-step's metrics: the loss, the gradient norm and the loss's own
+    expected = trainer.cfg.accum_steps * len(metrics[0]) + 1
+    assert counted == expected == 11
+    assert len(syncs) == counted, "\n".join(syncs)
+
+
+def test_a_rollout_request_makes_no_sync(rnd):
+    """A two-round rollout (encode, conditioning, guided sampling, decode)
+    under the sync debug mode: nothing synchronises, and no ``host_sync``."""
+    from vista_tpu_torch.diffusion.guidance import GuiderConfig
+    from vista_tpu_torch.diffusion.sampler import SamplerConfig
+    from vista_tpu_torch.engine.rollout import (RolloutConfig, autoregressive_rollout,
+                                                draw_rollout_noise)
+
+    engine = _small_engine(train=False)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    images = torch.randn(5, 3, 64, 64, generator=gen, device="cuda") * 0.2
+    batch = {"fps_id": torch.full((1,), 9.0, device="cuda"),
+             "motion_bucket_id": torch.full((1,), 127.0, device="cuda"),
+             "cond_aug": torch.zeros(1, device="cuda")}
+    draws = draw_rollout_noise(engine, images, 2, gen)
+    sampler = SamplerConfig(num_steps=3, guider=GuiderConfig(kind="triangle", scale=2.5,
+                                                             num_frames=5))
+    rollout = RolloutConfig(num_rounds=2, n_context_frames=2)
+    request = lambda: autoregressive_rollout(engine, images, batch, sampler, rollout, draws)
+    request()  # warm-up
+    syncs = _syncs(request)
+    assert not syncs, "\n".join(syncs)
+    assert _host_syncs(request) == 0

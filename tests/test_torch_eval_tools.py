@@ -13,8 +13,8 @@ fp32, inputs made with numpy from a seed:
 - the counterpart of ``test_quality_calibration.py`` with the port's tiny
   tower: the same clips (equal to the JAX test's), FCD rising over the
   noise and blur grades while PSNR falls, shuffle's FCD far below them;
-- ``StepTimer.report()``'s keys, ``trace`` writing a Chrome trace with an
-  ``annotate`` region;
+- ``StepTimer.report()``'s keys, and a ``span`` showing in a profiler's
+  Chrome trace;
 - ``tools/torch_quality_bench.py --smoke --device cpu`` in-process (the JAX
   harness's payload keys, finite metrics), its calibration, and its
   synthetic clips against the JAX harness's construction.
@@ -37,7 +37,8 @@ from vista_tpu.utils import metrics as jm
 from vista_tpu.utils import torch_import as ti
 from vista_tpu_torch.models import clip
 from vista_tpu_torch.utils import metrics as m
-from vista_tpu_torch.utils.profiling import StepTimer, annotate, trace
+from vista_tpu_torch.utils import profiling
+from vista_tpu_torch.utils.profiling import StepTimer, span
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL = 1e-5
@@ -170,16 +171,20 @@ def test_step_timer_and_trace(tmp_path):
     assert timer.report() == {}
     for _ in range(3):
         with timer.step() as out:
-            with annotate("vista_matmul"):
+            with span("vista_matmul"):
                 out["result"] = torch.ones(8, 8) @ torch.ones(8, 8)
     timer.start()
     timer.stop(torch.zeros(1))
     report = timer.report()
     assert set(report) == {"steps", "p50_s", "p90_s", "mean_s", "steps_per_sec"}
     assert report["steps"] == 4 and report["steps_per_sec"] > 0
-    with trace(str(tmp_path)):
-        with annotate("vista_region"):
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with span("vista_region"):
             torch.ones(4).sum()
+    assert [s.name for s in profiling.spans()] == ["vista_region"]
+    profiling.clear()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
     text = (tmp_path / "trace.json").read_text()
     assert "vista_region" in text and json.loads(text)["traceEvents"]
 

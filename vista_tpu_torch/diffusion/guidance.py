@@ -54,9 +54,11 @@ def guider_frame_scales(cfg: GuiderConfig) -> Optional[np.ndarray]:
     raise ValueError(f"unknown guider kind {cfg.kind!r}")
 
 
-def cfg_merge(denoised_pair: torch.Tensor, frame_scales: Optional[np.ndarray],
+def cfg_merge(denoised_pair: torch.Tensor,
+              frame_scales: Optional[Union[np.ndarray, torch.Tensor]],
               num_frames: int) -> torch.Tensor:
-    """Merge ``(2*b*t, ...)`` with the uncond half first."""
+    """Merge ``(2*b*t, ...)`` with the uncond half first (``frame_scales``
+    on the host or, with no copy, on the pair's device)."""
     if frame_scales is None:
         return denoised_pair
     x_u, x_c = denoised_pair.chunk(2, dim=0)

@@ -18,6 +18,7 @@ package's draws. Latents are NCHW ``(b*t, c, h, w)``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -80,6 +81,18 @@ def fourier_highpass_mask(h: int, w: int, d_s: float = 0.25) -> np.ndarray:
     return ((ii[:, None] + jj[None, :]) > 2.0 * d_s).astype(np.float32)
 
 
+# The tables below are copied to a device once: a copy from pageable host
+# memory waits for the device's queue to drain.
+@functools.lru_cache(maxsize=None)
+def _cond_mask_table_on(device: torch.device, choices, num_frames: int) -> torch.Tensor:
+    return torch.from_numpy(cond_mask_table(choices, num_frames)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _highpass_mask_on(device: torch.device, h: int, w: int) -> torch.Tensor:
+    return torch.from_numpy(fourier_highpass_mask(h, w)).to(device)
+
+
 def fourier_filter_highpass(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """High-pass each frame of ``(n, c, h, w)`` through a 2-D FFT."""
     f = torch.fft.fftshift(torch.fft.fftn(x.to(torch.complex64), dim=(-2, -1)), dim=(-2, -1))
@@ -134,8 +147,9 @@ def diffusion_loss(denoise_fn: Callable, latents: torch.Tensor, cond: dict,
     expand = lambda v: v.reshape(-1, *(1,) * (latents.ndim - 1))
     sigmas = edm_sigmas(draws.sigma_normal, cfg.num_frames, cfg.sigma_p_mean, cfg.sigma_p_std)
     if cfg.replace_cond_frames:
-        table = torch.from_numpy(cond_mask_table(cfg.cond_frames_choices, cfg.num_frames))
-        cond_mask = table.to(dev)[draws.choice.long()].reshape(-1)
+        choices = tuple(tuple(c) for c in cfg.cond_frames_choices)
+        table = _cond_mask_table_on(dev, choices, cfg.num_frames)
+        cond_mask = table[draws.choice.long()].reshape(-1)
     else:
         cond_mask = torch.zeros(bt, device=dev)
     noise = draws.noise
@@ -152,7 +166,7 @@ def diffusion_loss(denoise_fn: Callable, latents: torch.Tensor, cond: dict,
     if cfg.use_additional_loss:
         aux_w = _dynamics_weight(predict, latents, cfg.num_frames,
                                  2 if cfg.loss_type == "l2" else 1)
-        hp = torch.from_numpy(fourier_highpass_mask(*latents.shape[-2:])).to(dev)
+        hp = _highpass_mask_on(dev, *latents.shape[-2:])
         hf_err = fourier_filter_highpass(predict, hp) - fourier_filter_highpass(latents, hp)
         hf = w * (hf_err ** 2 if cfg.loss_type == "l2" else hf_err.abs())
         hf_loss = hf.reshape(bt, -1).mean(1).mean()

@@ -23,6 +23,7 @@ The step's sigma arithmetic is float32, as the JAX scan's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional, Union
 
@@ -31,6 +32,7 @@ import torch
 
 from vista_tpu_torch.diffusion.discretization import edm_sigmas
 from vista_tpu_torch.diffusion.guidance import GuiderConfig, cfg_merge, guider_frame_scales
+from vista_tpu_torch.utils.profiling import span
 
 # denoise_fn(x, sigma, cond, cond_mask) -> denoised estimate
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, dict, Optional[torch.Tensor]],
@@ -57,6 +59,13 @@ class SamplerConfig:
 
 def _double_cond(cond: dict, uc: dict) -> dict:
     return {k: torch.cat([uc[k], cond[k]], dim=0) for k in cond}
+
+
+@functools.lru_cache(maxsize=None)
+def _scales_on(scales: tuple, device: torch.device) -> torch.Tensor:
+    """The guider's frame scales, copied to ``device`` once: a copy from
+    pageable host memory waits for the device's queue."""
+    return torch.tensor(scales, dtype=torch.float32, device=device)
 
 
 def _eps(churn_noise: ChurnNoise, i: int, x: torch.Tensor) -> torch.Tensor:
@@ -93,6 +102,8 @@ def sample_euler_edm(denoise_fn: DenoiseFn, noise: torch.Tensor, cond: dict,
     frame_scales = guider_frame_scales(config.guider)
     if frames is not None and frame_scales is not None:
         frame_scales = frame_scales[frames]
+    if frame_scales is not None:
+        frame_scales = _scales_on(tuple(frame_scales.tolist()), noise.device)
     guided = frame_scales is not None and uc is not None
     doubled = guided and config.cfg_mode == "batched"
     cond_all = _double_cond(cond, uc) if doubled else cond
@@ -118,13 +129,15 @@ def sample_euler_edm(denoise_fn: DenoiseFn, noise: torch.Tensor, cond: dict,
 
     x = noise * math.sqrt(1.0 + float(sigmas[0]) ** 2)
     for i, (sigma, next_sigma) in enumerate(zip(sigmas[:-1], sigmas[1:])):
-        x = pin(x)
-        sigma_hat = sigma
-        if use_churn:
-            gamma = np.float32(gamma_max if config.s_tmin <= sigma <= config.s_tmax else 0.0)
-            sigma_hat = sigma * (gamma + np.float32(1.0))
-            extra = np.sqrt(np.maximum(sigma_hat * sigma_hat - sigma * sigma, np.float32(0.0)))
-            x = x + _eps(churn_noise, i, x) * (config.s_noise * float(extra))
-        denoised = denoise(x, float(sigma_hat))
-        x = x + float(next_sigma - sigma_hat) * ((x - denoised) / float(sigma_hat))
+        with span("sampler.step"):
+            x = pin(x)
+            sigma_hat = sigma
+            if use_churn:
+                gamma = np.float32(gamma_max if config.s_tmin <= sigma <= config.s_tmax else 0.0)
+                sigma_hat = sigma * (gamma + np.float32(1.0))
+                extra = np.sqrt(np.maximum(sigma_hat * sigma_hat - sigma * sigma,
+                                           np.float32(0.0)))
+                x = x + _eps(churn_noise, i, x) * (config.s_noise * float(extra))
+            denoised = denoise(x, float(sigma_hat))
+            x = x + float(next_sigma - sigma_hat) * ((x - denoised) / float(sigma_hat))
     return pin(x)

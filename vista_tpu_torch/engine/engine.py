@@ -38,6 +38,7 @@ from vista_tpu_torch.parallel.frames import frame_parallel
 from vista_tpu_torch.parallel.height import band_of, gather_rows, height_parallel
 from vista_tpu_torch.parallel.mesh import Mesh, gather_frames
 from vista_tpu_torch.parallel.weights import sharded_weights
+from vista_tpu_torch.utils.profiling import span
 
 # the conditions the unconditional half of classifier-free guidance zeroes
 UC_ZERO_KEYS: FrozenSet[str] = frozenset(
@@ -99,10 +100,11 @@ class VistaEngine:
         else its mode. Chunks of ``encode_chunk`` frames bound the encoder's
         activations."""
         chunk = self.cfg.encode_chunk
-        moments = torch.cat([self.encoder(pixels[i:i + chunk])
-                             for i in range(0, pixels.shape[0], chunk)])
-        z = gaussian_sample(moments, noise) if noise is not None else gaussian_mode(moments)
-        return z * self.cfg.vae.scale_factor
+        with span("encode"):
+            moments = torch.cat([self.encoder(pixels[i:i + chunk])
+                                 for i in range(0, pixels.shape[0], chunk)])
+            z = gaussian_sample(moments, noise) if noise is not None else gaussian_mode(moments)
+            return z * self.cfg.vae.scale_factor
 
     @torch.no_grad()
     def conditions(self, batch: Mapping[str, torch.Tensor],
@@ -110,7 +112,8 @@ class VistaEngine:
                    ucg_keep: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """``{"crossattn", "vector", "concat"}`` for a typed batch (see
         :class:`GeneralConditioner`)."""
-        return self.conditioner(batch, self.encoder, force_zero, skip_encode, ucg_keep)
+        with span("condition"):
+            return self.conditioner(batch, self.encoder, force_zero, skip_encode, ucg_keep)
 
     @torch.no_grad()
     def condition_pair(self, batch: Mapping[str, torch.Tensor],
@@ -125,19 +128,24 @@ class VistaEngine:
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latents ``(n, z, h, w)`` -> fp32 pixels ``(n, 3, H, W)``."""
-        cfg = self.cfg
-        z = z / cfg.vae.scale_factor
+        with span("decode"):
+            return self._decode(z / self.cfg.vae.scale_factor)
+
+    def _window(self, z: torch.Tensor) -> torch.Tensor:
+        with span("decode.window"):
+            return self.decoder(z, z.shape[0])
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
         n = z.shape[0]
-        chunk, overlap = cfg.decode_chunk, cfg.decode_overlap
+        chunk, overlap = self.cfg.decode_chunk, self.cfg.decode_overlap
         if n <= chunk:
-            return self.decoder(z, n)
+            return self._window(z)
         outs = []
         prev = z[:overlap]
         step = chunk - overlap
         for start in range(overlap, n, step):
             cur = z[start:start + step]
-            window = torch.cat([prev, cur])
-            out = self.decoder(window, window.shape[0])
+            out = self._window(torch.cat([prev, cur]))
             if outs:
                 outs[-1][-overlap:] = (outs[-1][-overlap:] + out[:overlap]) / 2.0
                 out = out[overlap:]
@@ -178,10 +186,11 @@ class VistaEngine:
         """One sampling pass over ``num_frames`` latents. ``churn_noise``
         (the JAX ``key``'s counterpart: a callable ``i -> eps`` or a
         ``torch.Generator``) feeds the stochastic churn of ``s_churn > 0``."""
-        return sample_euler_edm(self.denoise_fn(), noise, cond, uc,
-                                cond_frame=cond_frame, cond_mask=cond_mask,
-                                config=sampler, num_frames=self.cfg.num_frames,
-                                churn_noise=churn_noise)
+        with span("sample"):
+            return sample_euler_edm(self.denoise_fn(), noise, cond, uc,
+                                    cond_frame=cond_frame, cond_mask=cond_mask,
+                                    config=sampler, num_frames=self.cfg.num_frames,
+                                    churn_noise=churn_noise)
 
     @torch.no_grad()
     def sample_sharded(self, noise: torch.Tensor, cond: Dict[str, torch.Tensor],
@@ -214,30 +223,32 @@ class VistaEngine:
         if mesh is None or not mesh.distributed:
             raise ValueError("sample_sharded needs a mesh over a process group (torchrun)")
         group = mesh.group("data")
-        if mode == "weights":
+        if mode == "weights":  # the pass is :meth:`sample`'s, its span too
             with sharded_weights(self.unet.blocks(), group, fsdp_min_size):
                 return self.sample(noise, cond, uc, cond_frame, cond_mask, sampler)
-        if mode == "height":
-            with height_parallel(group, *noise.shape[2:]):
-                rows = lambda c: None if c is None else {
-                    k: band_of(v) if v.ndim == 4 else v for k, v in c.items()}
-                out = sample_euler_edm(self.denoise_fn(), band_of(noise), rows(cond), rows(uc),
-                                       cond_frame=band_of(cond_frame), cond_mask=cond_mask,
-                                       config=sampler, num_frames=self.cfg.num_frames)
-                return gather_rows(out)
-        t, n = self.cfg.num_frames, mesh.size("data")
-        if t % n:
-            raise ValueError(f"the data axis of {n} ranks must divide num_frames={t}")
-        tl = t // n
-        frames = slice(mesh.coord("data") * tl, (mesh.coord("data") + 1) * tl)
-        take = lambda a: None if a is None else (
-            a.reshape(-1, t, *a.shape[1:])[:, frames].reshape(-1, *a.shape[1:]))
-        per_frame = lambda c: None if c is None else {
-            k: take(v) if k == "concat" and v.shape[0] == noise.shape[0] else v
-            for k, v in c.items()}
-        with frame_parallel(group):
-            out = sample_euler_edm(self.denoise_fn(tl), take(noise), per_frame(cond),
-                                   per_frame(uc), cond_frame=take(cond_frame),
-                                   cond_mask=take(cond_mask), config=sampler, num_frames=tl,
-                                   frames=frames)
-        return gather_frames(out, noise.shape[0] // t, group)
+        with span("sample"):
+            if mode == "height":
+                with height_parallel(group, *noise.shape[2:]):
+                    rows = lambda c: None if c is None else {
+                        k: band_of(v) if v.ndim == 4 else v for k, v in c.items()}
+                    out = sample_euler_edm(self.denoise_fn(), band_of(noise), rows(cond),
+                                           rows(uc), cond_frame=band_of(cond_frame),
+                                           cond_mask=cond_mask, config=sampler,
+                                           num_frames=self.cfg.num_frames)
+                    return gather_rows(out)
+            t, n = self.cfg.num_frames, mesh.size("data")
+            if t % n:
+                raise ValueError(f"the data axis of {n} ranks must divide num_frames={t}")
+            tl = t // n
+            frames = slice(mesh.coord("data") * tl, (mesh.coord("data") + 1) * tl)
+            take = lambda a: None if a is None else (
+                a.reshape(-1, t, *a.shape[1:])[:, frames].reshape(-1, *a.shape[1:]))
+            per_frame = lambda c: None if c is None else {
+                k: take(v) if k == "concat" and v.shape[0] == noise.shape[0] else v
+                for k, v in c.items()}
+            with frame_parallel(group):
+                out = sample_euler_edm(self.denoise_fn(tl), take(noise), per_frame(cond),
+                                       per_frame(uc), cond_frame=take(cond_frame),
+                                       cond_mask=take(cond_mask), config=sampler,
+                                       num_frames=tl, frames=frames)
+            return gather_frames(out, noise.shape[0] // t, group)

@@ -25,6 +25,7 @@ import torch
 from vista_tpu_torch.diffusion.sampler import SamplerConfig
 from vista_tpu_torch.engine.engine import UC_ZERO_KEYS, VistaEngine
 from vista_tpu_torch.parallel.mesh import Mesh
+from vista_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +63,8 @@ def draw_rollout_noise(engine: VistaEngine, images: torch.Tensor, n: int,
 
 def frame_mask(indices: Iterable[int], num_frames: int, device) -> torch.Tensor:
     m = torch.zeros(num_frames, device=device)
-    m[list(indices)] = 1.0
+    for i in indices:  # filled in place: an index list or a value set by index is a host copy
+        m[i].fill_(1.0)
     return m
 
 
@@ -95,49 +97,50 @@ def autoregressive_rollout(engine: VistaEngine, images: torch.Tensor,
     ``frames``, ``height`` or ``weights``);
     encode, conditioning and decode run whole on every rank.
     """
-    run_round = engine.sample if mesh is None else functools.partial(
-        engine.sample_sharded, mesh=mesh, mode=mesh_mode)
-    cfg = engine.cfg
-    t, nc = cfg.num_frames, rollout.n_context_frames
-    if draws.noise.shape[0] < rollout.num_rounds:
-        raise ValueError(f"{rollout.num_rounds} rounds need as many noises, "
-                         f"got {draws.noise.shape[0]}")
-    z = engine.encode_first_stage(images, draws.posterior).float()
+    with span("rollout"):
+        run_round = engine.sample if mesh is None else functools.partial(
+            engine.sample_sharded, mesh=mesh, mode=mesh_mode)
+        cfg = engine.cfg
+        t, nc = cfg.num_frames, rollout.n_context_frames
+        if draws.noise.shape[0] < rollout.num_rounds:
+            raise ValueError(f"{rollout.num_rounds} rounds need as many noises, "
+                             f"got {draws.noise.shape[0]}")
+        z = engine.encode_first_stage(images, draws.posterior).float()
 
-    c, uc = engine.condition_pair(first_round_batch(batch, images, draws.cond_aug),
-                                  rollout.force_uc_zero)
-    mask = frame_mask(rollout.initial_cond_indices, t, z.device)
-    sample = run_round(draws.noise[0], c, uc, z, mask, sampler)
-    sample[0] = z[0]
+        c, uc = engine.condition_pair(first_round_batch(batch, images, draws.cond_aug),
+                                      rollout.force_uc_zero)
+        mask = frame_mask(rollout.initial_cond_indices, t, z.device)
+        sample = run_round(draws.noise[0], c, uc, z, mask, sampler)
+        sample[0] = z[0]
 
-    # every round decodes t latents: rounds 2+ carry the previous round's nc
-    # context latents through the temporal decoder and drop their frames
-    latents = [sample]
-    decoded = engine.decode_first_stage(sample) if decode_output else None
-    pixels = [decoded]
+        # every round decodes t latents: rounds 2+ carry the previous round's nc
+        # context latents through the temporal decoder and drop their frames
+        latents = [sample]
+        decoded = engine.decode_first_stage(sample) if decode_output else None
+        pixels = [decoded]
 
-    pred_mask = frame_mask(range(nc), t, z.device)
-    for n in range(1, rollout.num_rounds):
-        # the next CLIP image: frame -nc of this round's decode (without one,
-        # of a decode of the tail)
+        pred_mask = frame_mask(range(nc), t, z.device)
+        for n in range(1, rollout.num_rounds):
+            # the next CLIP image: frame -nc of this round's decode (without one,
+            # of a decode of the tail)
+            if not decode_output:
+                decoded = engine.decode_first_stage(sample[-cfg.decode_chunk:])
+            clip_frame = decoded[-nc]
+            batch_n = dict(batch)
+            batch_n["cond_frames_without_noise"] = clip_frame[None]
+            # the concat condition is the unscaled latent (the encoder's output)
+            batch_n["cond_frames"] = sample[-nc][None] / cfg.vae.scale_factor
+            c, uc = engine.condition_pair(batch_n, rollout.force_uc_zero, skip_encode=True)
+
+            filled = torch.zeros_like(sample)
+            filled[:nc] = sample[-nc:]
+            sample = run_round(draws.noise[n], c, uc, filled, pred_mask, sampler)
+            latents.append(sample[nc:])
+            if decode_output:
+                decoded = engine.decode_first_stage(sample)
+                pixels.append(decoded[nc:])
+
+        latents = torch.cat(latents)
         if not decode_output:
-            decoded = engine.decode_first_stage(sample[-cfg.decode_chunk:])
-        clip_frame = decoded[-nc]
-        batch_n = dict(batch)
-        batch_n["cond_frames_without_noise"] = clip_frame[None]
-        # the concat condition is the unscaled latent (the encoder's output)
-        batch_n["cond_frames"] = sample[-nc][None] / cfg.vae.scale_factor
-        c, uc = engine.condition_pair(batch_n, rollout.force_uc_zero, skip_encode=True)
-
-        filled = torch.zeros_like(sample)
-        filled[:nc] = sample[-nc:]
-        sample = run_round(draws.noise[n], c, uc, filled, pred_mask, sampler)
-        latents.append(sample[nc:])
-        if decode_output:
-            decoded = engine.decode_first_stage(sample)
-            pixels.append(decoded[nc:])
-
-    latents = torch.cat(latents)
-    if not decode_output:
-        return None, latents
-    return torch.clamp((torch.cat(pixels) + 1.0) / 2.0, 0.0, 1.0), latents
+            return None, latents
+        return torch.clamp((torch.cat(pixels) + 1.0) / 2.0, 0.0, 1.0), latents

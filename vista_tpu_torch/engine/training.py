@@ -41,6 +41,11 @@ gradient norm sums its squares in fp64, the slices' sums added over the
 ``fsdp`` group, so its fp32 value does not depend on the mesh. Without a
 process group the trainer is one rank.
 
+A micro-step is a ``train.step`` span (``utils/profiling.py``) holding
+``train.forward``, ``train.backward`` and ``train.apply``; every device
+scalar it brings to the host (the gradient norms, the loss and its metrics)
+goes through ``host_sync``, its only waits for the device.
+
 :func:`eval_loss` is the loss alone (counterpart of ``make_eval_step``):
 no ucg dropout, no gradient, under whatever weights the modules hold;
 :meth:`Trainer.ema_weights` puts the EMA shadows in for its span.
@@ -63,6 +68,7 @@ from vista_tpu_torch.engine.lr_schedule import lambda_linear
 from vista_tpu_torch.models.conditioner import draw_ucg_keep
 from vista_tpu_torch.parallel.mesh import (Mesh, all_gather_dim, fsdp_shard_dim, grad_mean_,
                                            shard)
+from vista_tpu_torch.utils.profiling import host_sync, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,13 +227,15 @@ class Trainer:
         that requires grad. Returns the loss and its metrics."""
         for p in self.engine.unet.parameters():
             p.grad = None
-        loss, aux = _loss(self.engine, self.cfg, batch, draws)
-        loss.backward()
-        if self.mesh is not None:  # the data-parallel mean, after the backward
-            for p in self.params.values():
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            grad_mean_([p.grad for p in self.params.values()], self._data)
+        with span("train.forward"):
+            loss, aux = _loss(self.engine, self.cfg, batch, draws)
+        with span("train.backward"):
+            loss.backward()
+            if self.mesh is not None:  # the data-parallel mean, after the backward
+                for p in self.params.values():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                grad_mean_([p.grad for p in self.params.values()], self._data)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     def _grad(self, name: str) -> torch.Tensor:
@@ -267,39 +275,47 @@ class Trainer:
         reach its bits. ``sliced``: the tensors are this rank's slices; the
         sliced ones' sums are added over the ``fsdp`` group, a whole tensor
         counts once."""
-        if not sliced or self.mesh is None:
-            total = self._squares(tensors.values())
-        else:
-            total = self._squares(t for n, t in tensors.items() if self.shard_dims[n] is not None)
-            dist.all_reduce(total, group=self._fsdp)
-            total = total + self._squares(
-                t for n, t in tensors.items() if self.shard_dims[n] is None)
-        return float(torch.sqrt(total).float())  # one sync
+        with span("apply.norm"):
+            if not sliced or self.mesh is None:
+                total = self._squares(tensors.values())
+            else:
+                total = self._squares(t for n, t in tensors.items()
+                                      if self.shard_dims[n] is not None)
+                dist.all_reduce(total, group=self._fsdp)
+                total = total + self._squares(
+                    t for n, t in tensors.items() if self.shard_dims[n] is None)
+            return host_sync(torch.sqrt(total).float())
 
     @torch.no_grad()
     def apply(self) -> float:
         """One micro-step from the ``.grad`` of each leaf that trains, cast to
         fp32 tensor by tensor and then dropped. Returns the micro-batch's
         gradient norm."""
-        cfg = self.cfg
-        norm = self._global_norm({n: p.grad for n, p in self.params.items()
-                                  if p.grad is not None})
-        self.step += 1
-        if self.acc is not None:
-            n_acc = (self.step - 1) % cfg.accum_steps + 1
-            for n, acc in self.acc.items():
-                acc.add_((self._local_grad(n) - acc) / n_acc)
-                self.params[n].grad = None
-            if n_acc == cfg.accum_steps:
-                self._update(lambda n: self.acc[n], self._global_norm(self.acc, sliced=True))
-                for acc in self.acc.values():
-                    acc.zero_()
-        else:
-            self._update(self._local_grad, norm)
-            for p in self.params.values():
-                p.grad = None
-        ema_update(self.ema, self.master, self.step, cfg.ema_decay)
-        return norm
+        with span("train.apply"):
+            cfg = self.cfg
+            norm = self._global_norm({n: p.grad for n, p in self.params.items()
+                                      if p.grad is not None})
+            self.step += 1
+            if self.acc is not None:
+                n_acc = (self.step - 1) % cfg.accum_steps + 1
+                with span("apply.accumulate"):
+                    for n, acc in self.acc.items():
+                        acc.add_((self._local_grad(n) - acc) / n_acc)
+                        self.params[n].grad = None
+                if n_acc == cfg.accum_steps:
+                    total = self._global_norm(self.acc, sliced=True)
+                    with span("apply.update"):
+                        self._update(lambda n: self.acc[n], total)
+                        for acc in self.acc.values():
+                            acc.zero_()
+            else:
+                with span("apply.update"):
+                    self._update(self._local_grad, norm)
+                    for p in self.params.values():
+                        p.grad = None
+            with span("apply.ema"):
+                ema_update(self.ema, self.master, self.step, cfg.ema_decay)
+            return norm
 
     def _update(self, grad, norm: float) -> None:
         """The inner chain: clip -> Adam -> decay -> multiplier -> schedule."""
@@ -376,13 +392,14 @@ class Trainer:
     def __call__(self, batch: Mapping[str, torch.Tensor], draws: TrainDraws) -> Dict[str, float]:
         """One micro-step; the loss and its metrics are the global batch's
         (averaged over the ``data`` group)."""
-        loss, aux = self.loss_and_grads(batch, draws)
-        norm = self.apply()
-        metrics = {"loss": loss, **aux}
-        if self.mesh is not None:
-            metrics = self.data_mean(metrics)
-        return {"loss": float(metrics.pop("loss")), "grad_norm": norm,
-                **{k: float(v) for k, v in metrics.items()}}
+        with span("train.step"):
+            loss, aux = self.loss_and_grads(batch, draws)
+            norm = self.apply()
+            metrics = {"loss": loss, **aux}
+            if self.mesh is not None:
+                metrics = self.data_mean(metrics)
+            return {"loss": host_sync(metrics.pop("loss")), "grad_norm": norm,
+                    **{k: host_sync(v) for k, v in metrics.items()}}
 
     def data_mean(self, values: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Scalars by name -> their means over the ``data`` group (fp32; as

@@ -25,6 +25,7 @@ dense resampling matrices.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping, Tuple
 
 import numpy as np
@@ -82,20 +83,29 @@ def resize_weights(in_size: int, out_size: int, method: str = "cubic") -> np.nda
     return np.where(inside[None, :], w, f32(0)).astype(f32)
 
 
+# The constants below are copied to a device once: a copy from pageable host
+# memory waits for the device's queue to drain.
+@functools.lru_cache(maxsize=None)
+def _resize_on(device: torch.device, in_size: int, out_size: int) -> torch.Tensor:
+    return torch.from_numpy(resize_weights(in_size, out_size)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _mean_std_on(device: torch.device) -> torch.Tensor:
+    return torch.tensor((CLIP_MEAN, CLIP_STD), device=device)[:, :, None, None]
+
+
 def clip_preprocess(frames: torch.Tensor, image_size: int = 224) -> torch.Tensor:
     """``[-1, 1]`` frames ``(b, 3, H, W)`` -> CLIP-normalised ``(b, 3, S, S)``
     in fp32."""
     _, _, h, w = frames.shape
     x = frames.float()
     if h != image_size:
-        wh = torch.from_numpy(resize_weights(h, image_size)).to(x.device)
-        x = torch.einsum("bchw,hy->bcyw", x, wh)
+        x = torch.einsum("bchw,hy->bcyw", x, _resize_on(x.device, h, image_size))
     if w != image_size:
-        ww = torch.from_numpy(resize_weights(w, image_size)).to(x.device)
-        x = torch.einsum("bchw,wx->bchx", x, ww)
+        x = torch.einsum("bchw,wx->bchx", x, _resize_on(x.device, w, image_size))
     x = (x + 1.0) / 2.0
-    mean = torch.tensor(CLIP_MEAN, device=x.device)[:, None, None]
-    std = torch.tensor(CLIP_STD, device=x.device)[:, None, None]
+    mean, std = _mean_std_on(x.device)
     return (x - mean) / std
 
 

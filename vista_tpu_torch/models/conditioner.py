@@ -28,6 +28,7 @@ import torch.nn as nn
 from vista_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionTower, clip_preprocess
 from vista_tpu_torch.models.layers import timestep_embedding
 from vista_tpu_torch.models.vae import VAEConfig, gaussian_mode
+from vista_tpu_torch.utils.profiling import span
 
 ACTION_SPECS: Tuple[Tuple[str, int], ...] = (
     ("command", 1), ("trajectory", 8), ("speed", 4), ("angle", 4), ("goal", 2))
@@ -87,8 +88,9 @@ class GeneralConditioner(nn.Module):
                 return emb * ucg_keep[name].to(emb.dtype).reshape(-1, *(1,) * (emb.ndim - 1))
             return emb
 
-        clip_in = clip_preprocess(batch["cond_frames_without_noise"], cfg.clip.image_size)
-        crossattn = drop(self.clip_tower(clip_in)[:, None], "cond_frames_without_noise")
+        with span("condition.clip"):
+            clip_in = clip_preprocess(batch["cond_frames_without_noise"], cfg.clip.image_size)
+            crossattn = drop(self.clip_tower(clip_in)[:, None], "cond_frames_without_noise")
         if cfg.action_control:
             parts = [crossattn]
             for name, d in ACTION_SPECS:
@@ -104,8 +106,9 @@ class GeneralConditioner(nn.Module):
         if skip_encode:
             latent = cf
         else:
-            moments = encoder(cf)
-            qc = self.quant_conv
-            latent = gaussian_mode(nn.functional.conv2d(moments.float(), qc.weight.float(),
-                                                        qc.bias.float()))
+            with span("condition.encode"):
+                moments = encoder(cf)
+                qc = self.quant_conv
+                latent = gaussian_mode(nn.functional.conv2d(moments.float(), qc.weight.float(),
+                                                            qc.bias.float()))
         return {"crossattn": crossattn, "vector": vector, "concat": drop(latent, "cond_frames")}
